@@ -11,8 +11,8 @@
   ``avsum_tpu.io.native`` looks. Call :func:`ensure_native_io` before the
   first video is opened in the process.
 
-Run ``python -m avsum_torch.build`` to build everything and print the
-ptxas reports.
+Run ``python -m avsum_torch.build`` to build everything (the kernels in
+parallel) and print the ptxas reports.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -29,7 +30,7 @@ PKG_DIR = Path(__file__).resolve().parent
 REPO_ROOT = PKG_DIR.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "avsum_torch"
-KERNELS = ("melspec", "flash_fwd")
+KERNELS = ("melspec", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -80,6 +81,12 @@ def kernel_library(name: str) -> Path:
     return out
 
 
+def build_all() -> List[Path]:
+    """Build every kernel library, one ``nvcc`` per source, all at once."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return list(pool.map(kernel_library, KERNELS))
+
+
 def load_kernel(name: str) -> ctypes.CDLL:
     """The loaded kernel library (built on first use in this checkout)."""
     lib = _LOADED.get(name)
@@ -107,7 +114,6 @@ def ensure_native_io() -> Path:
 
 if __name__ == "__main__":
     print(f"built {ensure_native_io()}")
-    for kernel in KERNELS:
-        lib = kernel_library(kernel)
+    for lib in build_all():
         print(f"built {lib}")
         print(lib.with_name(lib.name + ".log").read_text())

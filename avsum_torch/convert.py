@@ -8,7 +8,11 @@ state_dicts. The inverse of ``avsum_tpu/vision/port_torch.py`` and
   -> ``weight``/``bias``/``running_mean``/``running_var``;
 - the attention's DenseGeneral ``qkv`` kernel [E, 3, H, D] and ``out``
   kernel [H, D, E] -> Linear(E, 3E) and Linear(E, E);
-- LSTM ``wi`` [F, 4H], ``wh`` [H, 4H], ``b`` [4H] keep their layout.
+- LSTM ``wi`` [F, 4H], ``wh`` [H, 4H], ``b`` [4H] keep their layout;
+- the attention encoder's ``block{i}/LayerNorm_{0,1}`` ``scale``/``bias``
+  -> ``blocks.{i}.norm_{0,1}`` ``weight``/``bias``, its
+  ``MultiHeadSelfAttention_0`` -> ``attention`` and ``Dense_{0,1}`` ->
+  ``dense_{0,1}``.
 
 ``python -m avsum_torch.convert --checkpoint DIR --out FILE.pt`` turns a
 JAX scorer checkpoint into ``{"scorer": state_dict}`` for
@@ -114,14 +118,43 @@ def bilstm_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             for leaf, value in leaves.items()}
 
 
+def attention_block_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """AttentionBlock params {LayerNorm_0, MultiHeadSelfAttention_0,
+    LayerNorm_1, Dense_0, Dense_1} -> state_dict."""
+    sd = {f"attention.{name}": value for name, value in
+          attention_from_flax(params["MultiHeadSelfAttention_0"]).items()}
+    for flax_name, name in (("LayerNorm_0", "norm_0"),
+                            ("LayerNorm_1", "norm_1")):
+        sd[f"{name}.weight"] = _tensor(params[flax_name]["scale"])
+        sd[f"{name}.bias"] = _tensor(params[flax_name]["bias"])
+    for flax_name, name in (("Dense_0", "dense_0"), ("Dense_1", "dense_1")):
+        sd[f"{name}.weight"] = _tensor(np.asarray(params[flax_name]["kernel"]).T)
+        sd[f"{name}.bias"] = _tensor(params[flax_name]["bias"])
+    return sd
+
+
+def attention_encoder_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """AttentionEncoder params {block0, block1, ...} -> state_dict."""
+    sd = {}
+    for block, leaves in params.items():
+        i = int(re.fullmatch(r"block(\d+)", block).group(1))
+        for name, value in attention_block_from_flax(leaves).items():
+            sd[f"blocks.{i}.{name}"] = value
+    return sd
+
+
 def scorer_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """AVScorer params (bilstm encoder, self fusion) -> state_dict."""
+    """AVScorer params (bilstm or attention encoder, self fusion) ->
+    state_dict."""
     params = dict(params)
     sd: Dict[str, torch.Tensor] = {}
     for name, value in attention_from_flax(params.pop("cross_attention")).items():
         sd[f"cross_attention.{name}"] = value
     for enc in ("visual_temporal", "audio_temporal"):
-        for name, value in bilstm_from_flax(params.pop(enc)).items():
+        tree = params.pop(enc)
+        convert = (bilstm_from_flax if "fwd" in tree
+                   else attention_encoder_from_flax)
+        for name, value in convert(tree).items():
             sd[f"{enc}.{name}"] = value
     names = {"visual_fc/Dense_0": "visual_fc.dense",
              "audio_fc/Dense_0": "audio_fc.dense"}

@@ -2,9 +2,10 @@
 
 The rule of ``avsum_tpu/vision/backbone.py::fast_init``: fan-in-scaled
 normals for weights, zeros for biases, BatchNorm scale 1 / bias 0 /
-mean 0 / var 1. Numbers come from a ``torch.Generator`` seeded with
-``seed``, so they differ from JAX's for the same seed; parity tests load
-JAX's weights through :mod:`avsum_torch.convert` instead.
+mean 0 / var 1, LayerNorm scale 1 / bias 0. Numbers come from a
+``torch.Generator`` seeded with ``seed``, so they differ from JAX's for
+the same seed; parity tests load JAX's weights through
+:mod:`avsum_torch.convert` instead.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ def fast_init_(module: nn.Module, seed: int = 0) -> nn.Module:
         p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(max(fan_in, 1)))
 
     for sub in module.modules():
-        if isinstance(sub, nn.modules.batchnorm._BatchNorm):
+        if isinstance(sub, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             sub.reset_parameters()
         elif isinstance(sub, (nn.Conv2d, nn.Linear)):
             normal_(sub.weight, math.prod(sub.weight.shape[1:]))

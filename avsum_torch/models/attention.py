@@ -1,10 +1,14 @@
 """Mask-aware multi-head self-attention (``avsum_tpu/models/attention.py``).
 
-Same dispatch rule as the JAX module: a sequence of at least
-``FLASH_MIN_SEQ`` positions goes through :func:`avsum_torch.ops.attention.flash_attention`
-(kernel K2 on a CUDA tensor; its plain version on a CPU tensor), shorter
-ones through the inline materialized softmax. Logits and softmax are
-float32 whatever the compute dtype.
+Same dispatch rule as the JAX module: with the kernel enabled
+(``use_kernel``, resolved from ``model.use_pallas`` by :func:`kernel_enabled`)
+a sequence of at least ``FLASH_MIN_SEQ`` positions goes through
+:func:`avsum_torch.ops.attention.flash_attention` (kernels K2, B3 and B4 on
+a CUDA tensor; its plain version on a CPU tensor). Shorter sequences, and
+every sequence with the kernel disabled, take the inline materialized
+softmax, which is also the math of the JAX package's chunked attention
+(``model.chunk_size`` only bounds its memory there). Logits and softmax
+are float32 whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +21,15 @@ from torch import nn
 from avsum_torch.ops.attention import NEG_INF, flash_attention
 
 FLASH_MIN_SEQ = 512
+
+
+def kernel_enabled(flag: Optional[bool] = None) -> bool:
+    """Resolve the tri-state ``model.use_pallas``: ``None`` (auto) and
+    ``True`` enable the attention kernels, ``False`` disables them on every
+    device. The JAX package's ``pallas_enabled`` resolves ``None`` by its
+    backend; here the tensor's device decides inside
+    :func:`flash_attention`."""
+    return flag is not False
 
 
 def attention_bias(mask: Optional[torch.Tensor], dtype=torch.float32):
@@ -33,12 +46,13 @@ class MultiHeadSelfAttention(nn.Module):
     ``out`` is the DenseGeneral (H, D -> E) as Linear(E, E)."""
 
     def __init__(self, embed_dim: int, num_heads: int = 4,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_kernel: bool = True):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         self.num_heads = num_heads
         self.dtype = dtype
+        self.use_kernel = use_kernel
         self.qkv = nn.Linear(embed_dim, 3 * embed_dim)
         self.out = nn.Linear(embed_dim, embed_dim)
 
@@ -49,7 +63,7 @@ class MultiHeadSelfAttention(nn.Module):
         d = e // h
         qkv = self.qkv(x.to(self.dtype)).view(b, s, 3, h, d)
         q, k, v = qkv.unbind(2)  # [B, S, H, D] strided views
-        if s >= FLASH_MIN_SEQ:
+        if self.use_kernel and s >= FLASH_MIN_SEQ:
             ctx = flash_attention(q, k, v, mask)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())

@@ -1,17 +1,56 @@
-"""BiLSTM temporal encoder (``avsum_tpu/models/temporal.py:31-104``).
+"""Temporal encoders (``avsum_tpu/models/temporal.py``): the BiLSTM
+(``:31-104``) and the attention encoder (``:107-170,309-318``).
 
-The recurrence is a Python loop over time steps (the JAX package's
-``lax.scan``). Gate order i, f, g, o; one bias; state frozen across
-masked steps; the reverse direction walks from the last step.
+BiLSTM: the recurrence is a Python loop over time steps (the JAX
+package's ``lax.scan``). Gate order i, f, g, o; one bias; state frozen
+across masked steps; the reverse direction walks from the last step.
 Parameters keep the JAX layout: ``wi`` [F, 4H], ``wh`` [H, 4H], ``b`` [4H].
+
+Attention encoder: sinusoidal positions ([sin | cos], an odd width
+zero-padded), then pre-norm blocks: LayerNorm (epsilon 1e-6, Flax's
+default) -> self-attention -> dropout -> residual, LayerNorm -> Linear
+4x -> exact (erf) GELU -> Linear -> dropout -> residual, output times the
+mask. ``remat`` re-runs each block's forward in the backward pass
+(``torch.utils.checkpoint``), as ``nn.remat`` does in JAX.
+
+Dropout follows Flax's ``nn.Dropout`` (keep with probability 1 - rate,
+scale kept values by 1 / (1 - rate)). Its masks come from explicit seeds:
+each dropout site draws one integer from the CPU ``torch.Generator`` the
+caller passes and seeds a generator on the tensor's device with it, so a
+checkpointed block draws the same masks when it is run again.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from avsum_torch.models.attention import MultiHeadSelfAttention
+
+LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+
+def next_seed(gen: Optional[torch.Generator]) -> Optional[int]:
+    """The seed of one dropout site: an integer drawn from ``gen``, or
+    None (no dropout) when ``gen`` is None."""
+    if gen is None:
+        return None
+    return int(torch.randint(0, 2 ** 62, (), generator=gen))
+
+
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """Flax's dropout with the mask drawn from ``seed``; identity when
+    ``seed`` is None or ``rate`` is 0."""
+    if seed is None or rate == 0.0:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class LSTMCellScan(nn.Module):
@@ -64,3 +103,74 @@ class BiLSTM(nn.Module):
         if mask is not None:
             out = out * mask.to(out.dtype)[..., None]
         return out
+
+
+def sinusoidal_positions(seq_len: int, dim: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Sinusoidal position table [S, dim]: [sin | cos] halves, computed in
+    float32 as the JAX function does; an odd ``dim`` gets a zero column."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    half = dim // 2
+    log_base = torch.tensor(math.log(10000.0), dtype=torch.float32,
+                            device=device)
+    freqs = torch.exp(-log_base
+                      * torch.arange(half, dtype=torch.float32, device=device)
+                      / half)
+    angles = pos * freqs[None, :]
+    emb = torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+    if emb.shape[-1] < dim:
+        emb = F.pad(emb, (0, dim - emb.shape[-1]))
+    return emb.to(dtype)
+
+
+class AttentionBlock(nn.Module):
+    """Pre-norm bidirectional attention block ([B, S, dim] -> same)."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype=torch.float32, use_kernel: bool = True):
+        super().__init__()
+        self.rate = dropout
+        self.norm_0 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.attention = MultiHeadSelfAttention(dim, num_heads, dtype,
+                                                use_kernel)
+        self.norm_1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.dense_0 = nn.Linear(dim, 4 * dim)
+        self.dense_1 = nn.Linear(4 * dim, dim)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                seeds: Tuple[Optional[int], Optional[int]] = (None, None)
+                ) -> torch.Tensor:
+        y = self.attention(self.norm_0(x), mask)
+        x = x + dropout(y, self.rate, seeds[0])
+        y = self.dense_1(F.gelu(self.dense_0(self.norm_1(x))))
+        x = x + dropout(y, self.rate, seeds[1])
+        if mask is not None:
+            x = x * mask.to(x.dtype)[..., None]
+        return x
+
+
+class AttentionEncoder(nn.Module):
+    """Sinusoidal positions + ``num_layers`` attention blocks."""
+
+    def __init__(self, hidden: int, num_layers: int = 2, num_heads: int = 4,
+                 dropout: float = 0.0, dtype=torch.float32,
+                 use_kernel: bool = True, remat: bool = False):
+        super().__init__()
+        self.remat = remat
+        self.blocks = nn.ModuleList(
+            AttentionBlock(hidden, num_heads, dropout, dtype, use_kernel)
+            for _ in range(num_layers))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``gen``: the CPU generator dropout seeds are drawn from (None:
+        no dropout)."""
+        _, s, f = x.shape
+        x = x + sinusoidal_positions(s, f, x.dtype, x.device)[None]
+        for block in self.blocks:
+            seeds = (next_seed(gen), next_seed(gen))
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, mask, seeds, use_reentrant=False)
+            else:
+                x = block(x, mask, seeds)
+        return x

@@ -1,1 +1,1 @@
-"""Knapsack summary selection (numpy)."""
+"""Knapsack summary selection and evaluation metrics (numpy)."""

@@ -1,1 +1,1 @@
-"""Shot-boundary helpers (numpy)."""
+"""Shot-boundary helpers and shot <-> annotation alignment (numpy)."""

@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each
 raising on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. build the two CUDA kernels (``avsum_torch/csrc``) and the host decoder
-   (``native/build/libavsumio.so``) from the checkout;
+2. build the CUDA kernels (``avsum_torch/csrc``, one nvcc per source, all
+   at once) and the host decoder (``native/build/libavsumio.so``) from
+   the checkout;
 3. ``summarize`` of a 12-scene 640x360 synthetic video at the
    ``configs/tvsum.yaml`` widths (dual backbone and VGGish in bfloat16,
    BiLSTM scorer, hidden 512, 4 heads) with random weights: K1 must run,
@@ -14,16 +15,28 @@ raising on failure:
    CPU, and the summary must fit the 15% budget;
 4. ``summarize`` of a synthetic video with >= 520 shots, so the padded
    shot axis reaches 512 and the scorer's attention runs kernel K2;
-5. each kernel against its plain PyTorch version on the card, float32
-   with TF32 off, on fixed cases and at the shapes the two runs gave it,
-   with CUDA-event times of both at those shapes.
+5. ``train`` through the CLI at the ``configs/hour_scale.yaml`` widths
+   (attention encoder, hidden 512, 4 heads, 2 layers; S = 1024 shots, so
+   the encoders' attention runs at D = 128 and the fusion's at D = 256)
+   on a synthetic feature cache of 4 videos for 2 epochs, then
+   ``--resume`` for a third: K2, B3 and B4 must run, the loss must be
+   finite, the checkpoint written and the resumed run start at epoch 2;
+6. each kernel against its plain PyTorch version on the card, float32
+   with TF32 off, on fixed cases and at the shapes the runs gave it, with
+   CUDA-event times of both at those shapes; the flash backward also
+   against autograd of the plain attention;
+7. one hour-scale train step on the card against the same step on the
+   CPU (same parameters and batch, dropout 0): loss, every gradient and
+   the parameters after 3 steps;
+8. one train step at S = 7168 with remat (``scripts/bench_train_hour.py``'s
+   shape): its time and peak device memory.
 
-Launch counts are reset just before each summarize and read just after
-it; the comparisons of phase 5 are not counted.
+Launch counts are reset just before each run of phases 3-5 and read just
+after it; the comparisons of phases 6-8 are not counted.
 
-The second-to-last line is the kernels' JSON, the last one
-``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
-there is no CUDA device or no checkout beside the script.
+The last three lines are the kernels' JSON, the card's nvidia-smi line
+and ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
+when there is no CUDA device or no checkout beside the script.
 """
 
 from __future__ import annotations
@@ -41,7 +54,12 @@ TVSUM_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "configs", "tvsum.yaml")
 K1_TOL = dict(rtol=2e-3, atol=2e-3)  # mel and log2-mel, as the JAX test
 K2_TOL = dict(rtol=1e-5, atol=1e-5)  # attention output and LSE
+B34_TOL = dict(rtol=1e-4, atol=1e-4)  # dq, dk, dv
 SCORE_TOL = 1e-4  # card scores vs the CPU plain path on the same features
+GRAD_TOL = 1e-4  # card vs CPU gradients, relative to each tensor's max |g|
+PARAM_TOL = 1e-5  # card vs CPU parameters after 3 train steps
+HOUR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "hour_scale.yaml")
 
 
 def card_line() -> str:
@@ -70,7 +88,7 @@ def phase_build() -> dict:
 
     t0 = time.perf_counter()
     native = build.ensure_native_io()
-    libs = [build.kernel_library(k) for k in build.KERNELS]
+    libs = build.build_all()
     secs = time.perf_counter() - t0
     print(f"build: {native.name} + {[p.name for p in libs]} in {secs:.1f} s")
     for lib in libs:
@@ -118,47 +136,292 @@ def check_k1(path_samples: list) -> dict:
     return {"max_abs_err": worst, **timing}
 
 
-def _qkv(b: int, s: int, h: int, d: int, seed: int):
-    """q, k, v as strided views of one [B, S, 3, H, D] tensor, the layout
-    the scorer's fused projection hands the kernel."""
+def _flash_case(b: int, s: int, d: int, seed: int):
+    """qkv [B, S, 3, 4, D] (q, k, v are strided views of it, the layout the
+    scorer's fused projection hands the kernels), a mask with a padded
+    tail in row 0 and no valid key in row 1 (when B > 1), and a cotangent
+    zeroed at masked queries."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn(b, s, 3, h, d, device="cuda", generator=g)
-    return qkv.unbind(2)
+    qkv = torch.randn(b, s, 3, 4, d, device="cuda", generator=g)
+    mask = torch.ones(b, s, device="cuda")
+    mask[0, s - s // 5:] = 0.0
+    if b > 1:
+        mask[1] = 0.0
+    cot = torch.randn(b, s, 4, d, device="cuda", generator=g)
+    return qkv, mask, cot * mask[:, :, None, None]
 
 
 def check_k2(path_seq: int) -> dict:
     import torch
 
-    from avsum_torch.ops.attention import attention_plain, flash_attention_fwd
+    from avsum_torch.ops.attention import (
+        attention_fwd_plain,
+        attention_plain,
+        flash_attention_fwd,
+    )
 
     worst = 0.0
     for d in (128, 256):
         for s in sorted({512, 544, 1000, path_seq}):
-            q, k, v = _qkv(2, s, 4, d, seed=s + d)
-            mask = torch.ones(2, s, device="cuda")
-            mask[0, s - s // 5:] = 0.0  # padded tail
-            mask[1] = 0.0  # every key masked: uniform average
+            qkv, mask, _ = _flash_case(2, s, d, seed=s + d)
+            q, k, v = qkv.unbind(2)
             out, lse = flash_attention_fwd(q, k, v, mask)
-            ref = attention_plain(q, k, v, mask)
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
-            logits = logits + torch.where(mask.bool(), 0.0, -1e30)[:, None, None]
+            ref, ref_lse = attention_fwd_plain(q, k, v, mask)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, ref, **K2_TOL)
-            torch.testing.assert_close(lse, torch.logsumexp(logits, -1),
-                                       **K2_TOL)
+            torch.testing.assert_close(lse, ref_lse, **K2_TOL)
             err = (out - ref).abs().max().item()
             worst = max(worst, err)
             print(f"K2 D={d} S={s}: max|dout| {err:.3e}")
-    q, k, v = _qkv(1, path_seq, 4, 256, seed=7)
-    mask = torch.ones(1, path_seq, device="cuda")
-    mask[:, path_seq - 20:] = 0.0
+    qkv, mask, _ = _flash_case(1, path_seq, 256, seed=7)
+    q, k, v = qkv.unbind(2)
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, mask))
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, mask))
     print(f"K2 at the path's [1, {path_seq}, 4, 256]: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def _grads(fn, qkv, mask, cot):
+    leaf = qkv.clone().requires_grad_()
+    out = fn(*leaf.unbind(2), mask)
+    (out * cot).sum().backward()
+    return leaf.grad.unbind(2)
+
+
+def _bwd_inputs(qkv, mask, cot):
+    from avsum_torch.ops.attention import flash_attention_fwd
+
+    q, k, v = qkv.unbind(2)
+    out, lse = flash_attention_fwd(q, k, v, mask)
+    delta = (cot * out).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, cot, mask, lse, delta
+
+
+def check_b34() -> tuple:
+    """B3 and B4 against their plain versions on the same inputs, and the
+    whole backward (K2 -> B3 -> B4) against autograd of the plain
+    attention; CUDA-event times at the train run's shapes."""
+    import torch
+
+    from avsum_torch.ops import attention as att
+
+    worst = {"dkv": 0.0, "dq": 0.0}
+    for d in (128, 256):
+        for s in (512, 544, 1000, 1024):
+            qkv, mask, cot = _flash_case(2, s, d, seed=s + d)
+            args = _bwd_inputs(qkv, mask, cot)
+            dk, dv = att.flash_bwd_dkv(*args)
+            dq = att.flash_bwd_dq(*args)
+            pk, pv = att.flash_bwd_dkv_plain(*args)
+            pq = att.flash_bwd_dq_plain(*args)
+            got = _grads(att.flash_attention, qkv, mask, cot)
+            want = _grads(att.attention_plain, qkv, mask, cot)
+            torch.cuda.synchronize()
+            for a, b_ in ((dk, pk), (dv, pv), (dq, pq), *zip(got, want)):
+                torch.testing.assert_close(a, b_, **B34_TOL)
+            worst["dkv"] = max(worst["dkv"], (dk - pk).abs().max().item(),
+                               (dv - pv).abs().max().item())
+            worst["dq"] = max(worst["dq"], (dq - pq).abs().max().item())
+            auto = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
+            print(f"B3/B4 D={d} S={s}: max|d(dk,dv)| vs plain "
+                  f"{worst['dkv']:.3e}, max|d dq| {worst['dq']:.3e}, "
+                  f"grads vs autograd of the plain attention {auto:.3e}")
+    timing = {}
+    for d in (256, 128):
+        qkv, mask, cot = _flash_case(1, 1024, d, seed=d)
+        args = _bwd_inputs(qkv, mask, cot)
+        t = {"dkv": cuda_ms(lambda: att.flash_bwd_dkv(*args)),
+             "dkv_plain": cuda_ms(lambda: att.flash_bwd_dkv_plain(*args)),
+             "dq": cuda_ms(lambda: att.flash_bwd_dq(*args)),
+             "dq_plain": cuda_ms(lambda: att.flash_bwd_dq_plain(*args))}
+        route = [cuda_ms(lambda: _grads(fn, qkv, mask, cot))
+                 for fn in (att.flash_attention, att.attention_plain,
+                            att.flash_attention, att.attention_plain)]
+        print(f"B3/B4 at [1, 1024, 4, {d}]: B3 {t['dkv']:.3f} ms (plain "
+              f"{t['dkv_plain']:.3f}), B4 {t['dq']:.3f} ms (plain "
+              f"{t['dq_plain']:.3f}); forward+backward, kernel route "
+              f"{route[0]:.3f} / {route[2]:.3f} ms, plain route "
+              f"{route[1]:.3f} / {route[3]:.3f} ms")
+        timing.setdefault(d, t)
+    t = timing[256]
+    return ({"max_abs_err": worst["dkv"], "ms": t["dkv"],
+             "plain_ms": t["dkv_plain"]},
+            {"max_abs_err": worst["dq"], "ms": t["dq"],
+             "plain_ms": t["dq_plain"]})
+
+
+def _write_feature_cache(cache_dir: str, n: int, seed: int) -> None:
+    """``n`` videos of 600-1000 shots at 4096 / 296 dims, seeded."""
+    import numpy as np
+
+    from avsum_tpu.data.cache import FeatureCache
+
+    rng = np.random.default_rng(seed)
+    cache = FeatureCache(cache_dir)
+    for i in range(n):
+        s = int(rng.integers(600, 1001))
+        ends = np.cumsum(rng.integers(30, 300, s))
+        bounds = np.stack([np.concatenate([[0], ends[:-1]]), ends], 1)
+        cache.put(f"hour_{i}", rng.standard_normal((s, 4096), np.float32),
+                  rng.standard_normal((s, 296), np.float32), bounds, 30.0,
+                  int(ends[-1]))
+
+
+def _train_counts():
+    from avsum_torch.ops import attention as att
+
+    return {"flash_fwd": att.flash_attention.launches,
+            "flash_bwd_dkv": att.flash_bwd_dkv.launches,
+            "flash_bwd_dq": att.flash_bwd_dq.launches}
+
+
+def _reset_train_counts() -> None:
+    from avsum_torch.ops import attention as att
+
+    att.flash_attention.launches = 0
+    att.flash_bwd_dkv.launches = 0
+    att.flash_bwd_dq.launches = 0
+
+
+def run_train(tmp: str) -> dict:
+    """``train`` at the hour_scale widths through the CLI, 2 epochs, then
+    ``--resume`` for a third; -> summed launch counts of both runs."""
+    import numpy as np
+
+    from avsum_torch.cli.main import main
+    from avsum_torch.train.checkpoint import CheckpointManager
+
+    _write_feature_cache(f"{tmp}/cache", 4, seed=11)
+    log_path = f"{tmp}/train.jsonl"
+    sets = ["mesh.seq=1", f"data.cache_dir={tmp}/cache",
+            f"train.checkpoint_dir={tmp}/ckpt", f"train.log_path={log_path}",
+            "train.warmup_steps=2", "train.log_every=1"]
+
+    def cli(epochs: int, *extra: str) -> dict:
+        args = [a for x in sets + [f"train.epochs={epochs}"]
+                for a in ("--set", x)]
+        _reset_train_counts()
+        t0 = time.perf_counter()
+        rc = main(["train", "--config", HOUR_CONFIG, "--device", "cuda",
+                   *extra, *args])
+        counts = _train_counts()
+        print(f"train {list(extra)} to epoch {epochs}: rc {rc}, "
+              f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+        if rc != 0 or min(counts.values()) <= 0:
+            raise AssertionError(f"train did not run all three kernels: "
+                                 f"rc {rc}, {counts}")
+        return counts
+
+    first = cli(2)
+    records = [json.loads(line) for line in open(log_path)]
+    steps = CheckpointManager(f"{tmp}/ckpt").steps()
+    losses = np.array([r["loss"] for r in records])
+    if len(records) != 8 or steps[-1] != 8 or not np.isfinite(losses).all():
+        raise AssertionError(f"train: {len(records)} steps logged, "
+                             f"checkpoints {steps}, losses {losses}")
+    dt = np.diff([r["time"] for r in records])[1:]
+    print(f"train: losses {np.round(losses, 5).tolist()}, checkpoints "
+          f"{steps}, warm step {1e3 * np.median(dt):.1f} ms (median of "
+          f"{len(dt)}; host clock, each step synchronized by its logging)")
+    resumed = cli(3, "--resume")
+    more = [json.loads(line) for line in open(log_path)][len(records):]
+    if not more or more[0]["epoch"] != 2 or more[0]["step"] != 9:
+        raise AssertionError(f"--resume did not start at epoch 2: {more[:1]}")
+    print(f"resume: {len(more)} steps from step {more[0]['step']} at epoch "
+          f"{int(more[0]['epoch'])}, loss {more[-1]['loss']:.5f}")
+    return {k: first[k] + resumed[k] for k in first}
+
+
+def compare_train_step() -> None:
+    """The hour_scale train step on the card against the CPU: the same
+    parameters and batch (S = 600, a padded tail), dropout 0, lr 1e-4
+    from the second step on."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from avsum_torch.models.scorer import make_model
+    from avsum_torch.train import steps
+    from avsum_tpu.train.config import load_config
+
+    cfg = load_config(HOUR_CONFIG, ["mesh.seq=1", "model.dropout=0",
+                                    "train.warmup_steps=1"])
+    rng = np.random.default_rng(3)
+    s = 600
+    mask = np.ones((1, s), np.float32)
+    mask[0, 560:] = 0.0
+    batch = {"visual": rng.standard_normal((1, s, 4096), np.float32),
+             "audio": rng.standard_normal((1, s, 296), np.float32),
+             "targets": rng.random((1, s), np.float32) * mask, "mask": mask}
+    cpu_model = make_model(cfg.model, seed=0)
+    runs = {}
+    for dev, model in (("cuda", copy.deepcopy(cpu_model).cuda()),
+                       ("cpu", cpu_model)):
+        b = steps.batch_to_device(batch, dev)
+        state = steps.create_train_state(model, cfg.train, total_steps=100)
+        model.train()
+        loss = steps.masked_mse(model(b["visual"], b["audio"], b["mask"]),
+                                b["targets"], b["mask"])
+        grads = torch.autograd.grad(loss, state.optimizer.params)
+        step = steps.make_train_step(model, seed=0)
+        losses = [float(step(state, b)[1]["loss"]) for _ in range(3)]
+        runs[dev] = (losses, [g.cpu() for g in grads],
+                     {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()})
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(l_card, l_cpu))
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                   for a, b in zip(g_card, g_cpu))
+    param_err = max((p_card[k] - p_cpu[k]).abs().max().item() for k in p_cpu)
+    moved = max((p_cpu[k] - v).abs().max().item()
+                for k, v in make_model(cfg.model, seed=0).state_dict().items())
+    print(f"train step card vs CPU: losses {l_card} / {l_cpu}, max|dloss| "
+          f"{loss_err:.2e}, max grad error / max|g| {grad_err:.2e}, params "
+          f"after 3 steps max|d| {param_err:.2e} (moved up to {moved:.2e})")
+    if loss_err > PARAM_TOL or grad_err > GRAD_TOL or param_err > PARAM_TOL:
+        raise AssertionError("the card's train step disagrees with the CPU's")
+
+
+def hour_step() -> None:
+    """One train step at S = 7168 with remat, hidden 512 (dropout on)."""
+    import numpy as np
+    import torch
+
+    from avsum_torch.models.scorer import make_model
+    from avsum_torch.train import steps
+    from avsum_tpu.train.config import load_config
+
+    cfg = load_config(HOUR_CONFIG, ["mesh.seq=1", "model.remat=true"])
+    s = 7168
+    rng = np.random.default_rng(0)
+    batch = steps.batch_to_device({
+        "visual": rng.standard_normal((1, s, 4096), np.float32),
+        "audio": rng.standard_normal((1, s, 296), np.float32),
+        "targets": rng.random((1, s), np.float32),
+        "mask": np.ones((1, s), np.float32)}, "cuda")
+    model = make_model(cfg.model, seed=0).cuda()
+    state = steps.create_train_state(model, cfg.train, total_steps=100)
+    step = steps.make_train_step(model, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    float(step(state, batch)[1]["loss"])
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss = float(step(state, batch)[1]["loss"])
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"hour step [1, {s}] remat: first {first * 1e3:.1f} ms, warm "
+          f"{[round(t * 1e3, 1) for t in times]} ms, loss {loss:.5f}, peak "
+          f"device memory {peak:.2f} GiB")
+    if not np.isfinite(loss):
+        raise AssertionError(f"hour step loss {loss}")
 
 
 def _video(stem: str, n_scenes: int, height: int, width: int,
@@ -294,9 +557,13 @@ def main() -> int:
             raise AssertionError(
                 f"padded S {s_pad}: the long video did not run both "
                 f"kernels ({n_many})")
+        n_train = run_train(tmp)
 
     k1 = check_k1(k1_samples)
     k2 = check_k2(s_pad)
+    b3, b4 = check_b34()
+    compare_train_step()
+    hour_step()
     kernels = [
         {"name": "melspec", "route": "cuda",
          "source": "avsum_torch/csrc/melspec.cu",
@@ -305,7 +572,16 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_fwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:42",
-         "launches": n_short["flash_fwd"] + n_many["flash_fwd"], **k2},
+         "launches": (n_short["flash_fwd"] + n_many["flash_fwd"]
+                      + n_train["flash_fwd"]), **k2},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "avsum_torch/csrc/flash_bwd.cu",
+         "replaces": "avsum_tpu/ops/attention.py:173",
+         "launches": n_train["flash_bwd_dkv"], **b3},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "avsum_torch/csrc/flash_bwd.cu",
+         "replaces": "avsum_tpu/ops/attention.py:221",
+         "launches": n_train["flash_bwd_dq"], **b4},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

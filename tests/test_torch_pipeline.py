@@ -2,8 +2,9 @@
 6-scene synthetic y4m + wav: both ``AVPipeline``s with the same weights
 (tiny backbone, VGGish and a hidden-64 BiLSTM scorer, all float32,
 converted from JAX). Boundaries and segments must be equal; features and
-scores agree within 1e-4. Also: the slice runs with jax and flax
-unimportable, and the CLI prints the JAX CLI's JSON keys."""
+scores agree within 1e-4. Also: the summarize slice and the train CLI
+run with jax and flax unimportable, and the CLI prints the JAX CLI's
+JSON keys."""
 
 import json
 import os
@@ -120,6 +121,42 @@ def test_slice_runs_without_jax(tmp_path):
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert len(out["shot_scores"]) >= 2 and out["segments"]
     assert all(0.0 <= s <= 1.0 for s in out["shot_scores"])
+
+
+NO_JAX_TRAIN = """
+import json, sys
+sys.modules["jax"] = sys.modules["flax"] = None
+from avsum_tpu.data.cache import FeatureCache
+from avsum_tpu.data.synthetic import make_synthetic_videos
+from avsum_torch.cli.main import main
+tmp = sys.argv[1]
+cache = FeatureCache(tmp + "/cache")
+for ex in make_synthetic_videos(3, min_shots=6, max_shots=12, visual_dim=16,
+                                audio_dim=8, seed=2):
+    cache.put(ex.video_id, ex.visual, ex.audio, ex.shot_boundaries, ex.fps,
+              ex.n_frames)
+sets = ["data.dataset=synthetic", "data.cache_dir=" + tmp + "/cache",
+        "data.max_shots=16", "data.batch_videos=2", "model.visual_dim=16",
+        "model.audio_dim=8", "model.hidden_dim=16", "model.num_heads=2",
+        "model.scorer_hidden=8", "train.epochs=1", "train.log_every=1",
+        "train.checkpoint_dir=" + tmp + "/ckpt",
+        "train.log_path=" + tmp + "/log.jsonl"]
+assert main(["train", "--device", "cpu",
+             *[a for s in sets for a in ("--set", s)]]) == 0
+assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "flax")]
+print(open(tmp + "/log.jsonl").read().strip().splitlines()[-1])
+"""
+
+
+def test_train_runs_without_jax(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-c", NO_JAX_TRAIN, str(tmp_path)],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr[-3000:]
+    last = json.loads(res.stdout.strip().splitlines()[-1])
+    assert last["step"] == 2 and last["loss"] >= 0.0
+    assert os.path.isdir(tmp_path / "ckpt" / "2")
 
 
 @needs_native

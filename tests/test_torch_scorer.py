@@ -70,6 +70,10 @@ def test_avscorer_matches_jax(s):
     assert not got.numpy()[mask == 0].any()
 
 
-def test_unported_scorer_variants_raise():
-    with pytest.raises(ValueError, match="bilstm"):
-        make_model(ModelConfig(temporal_encoder="attention"))
+@pytest.mark.parametrize("change", [
+    dict(temporal_encoder="moe"), dict(temporal_encoder="tcn"),
+    dict(fusion="cross"), dict(pp_stages=4)])
+def test_unported_scorer_variants_raise(change):
+    cfg = ModelConfig(visual_dim=8, audio_dim=4, hidden_dim=16, **change)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        make_model(cfg)
