@@ -3,14 +3,16 @@
 
 The whole waveform's streams are computed once on the device; the
 log-mel goes through kernel K1 (:func:`avsum_torch.ops.melspec.fused_log_mel`)
-whenever n_fft == 2 * hop_length, as the JAX package dispatches to its
-Pallas kernel.
+when ``audio.use_pallas`` leaves it on and n_fft == 2 * hop_length, as the
+JAX package dispatches to its Pallas kernel; otherwise through the plain
+spectral ops.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import warnings
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +23,7 @@ from avsum_torch.audio.vggish import (
     VGGish,
     vggish_log_mel_patches,
 )
+from avsum_torch.models.attention import kernel_enabled
 from avsum_torch.ops.melspec import fused_log_mel
 from avsum_torch.ops.spectral import amplitude_to_db, dct_matrix, mel_spectrogram
 from avsum_tpu.train.config import AudioFeatConfig
@@ -47,16 +50,26 @@ class AudioFrontend:
     """Whole-waveform spectral + VGGish streams, then per-shot pooling."""
 
     def __init__(self, config: AudioFeatConfig, vggish: VGGish,
-                 device: torch.device):
+                 device: torch.device, use_pallas: Optional[bool] = None):
         if config.encoder != "vggish":
             raise ValueError(f"audio encoder {config.encoder!r} is not ported")
+        flag = use_pallas if use_pallas is not None else config.use_pallas
+        self.use_kernel = kernel_enabled(flag)
+        if self.use_kernel and config.n_fft != 2 * config.hop_length:
+            if flag is True:  # explicitly requested, loudly refused
+                warnings.warn(
+                    "audio.use_pallas=True but the fused log-mel kernel "
+                    f"requires n_fft == 2*hop_length (got {config.n_fft}/"
+                    f"{config.hop_length}); using the plain spectral path",
+                    stacklevel=2)
+            self.use_kernel = False
         self.config = config
         self.device = torch.device(device)
         self.vggish = vggish.to(self.device).eval()
 
     @torch.inference_mode()
     def full_features(self, waveform) -> Tuple[torch.Tensor, ...]:
-        """[T] int16 or float waveform -> (mfcc [N, 40], log-mel [N, 128],
+        """[T] int16 or float waveform -> (mfcc [N, 40], log-mel [N, n_mels],
         vggish [P, 128]) on the device. The waveform is zero-padded to a
         power-of-two length first, as the JAX package buckets it; int16
         samples are scaled by 1/32768 on the device."""
@@ -68,7 +81,7 @@ class AudioFrontend:
         wave = np.pad(wave, (0, (1 << (t - 1).bit_length()) - len(wave)))
         x = torch.from_numpy(wave).to(self.device)
         x = x.float() * (1.0 / 32768.0) if x.dtype == torch.int16 else x
-        if cfg.n_fft == 2 * cfg.hop_length:
+        if self.use_kernel:
             mel, lm = fused_log_mel(
                 x, sample_rate=cfg.sample_rate, n_fft=cfg.n_fft,
                 hop_length=cfg.hop_length, n_mels=cfg.n_mels, eps=cfg.eps)

@@ -3,9 +3,10 @@
 - CUDA kernels: each ``csrc/<name>.cu`` compiles with ``nvcc`` for
   ``sm_90a`` into a shared library with a plain C interface, loaded with
   ctypes. No PyTorch headers are included, so a build takes seconds. The
-  library is cached under ``build/avsum_torch/`` by a hash of its source
-  and flags; ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
-  spills) is kept beside it as ``<lib>.log``.
+  library is cached under ``build/avsum_torch/`` by a hash of its source,
+  of every ``csrc`` header it includes, and of the flags; ``nvcc``'s
+  ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
+  it as ``<lib>.log``.
 - The host decoder ``native/avsumio.cc`` compiles with ``g++`` (no
   ``-march=native``) into ``native/build/libavsumio.so``, the first place
   ``avsum_tpu.io.native`` looks. Call :func:`ensure_native_io` before the
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -40,6 +42,7 @@ NATIVE_LIB = REPO_ROOT / "native" / "build" / "libavsumio.so"
 GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-pthread", "-shared"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def _tag(data: bytes, flags: List[str]) -> str:
@@ -66,11 +69,31 @@ def nvcc_path() -> str:
     return found
 
 
+def _source_bytes(src: Path, seen=None) -> bytes:
+    """``src`` followed by every header beside it that it includes
+    (``#include "..."``), recursively, each once."""
+    seen = set() if seen is None else seen
+    seen.add(src)
+    data = src.read_bytes()
+    for name in _INCLUDE.findall(data):
+        header = src.parent / name.decode()
+        if header.exists() and header not in seen:
+            data += b"\0" + _source_bytes(header, seen)
+    return data
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is cached: the name carries
+    a hash of the source, the headers it includes and the flags."""
+    src = CSRC_DIR / f"{name}.cu"
+    return BUILD_DIR / f"lib{name}-{_tag(_source_bytes(src), NVCC_FLAGS)}.so"
+
+
 def kernel_library(name: str) -> Path:
     """Path of the built ``csrc/<name>.cu`` library, building it if the
     cache holds no library for this source."""
     src = CSRC_DIR / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}-{_tag(src.read_bytes(), NVCC_FLAGS)}.so"
+    out = library_path(name)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

@@ -55,7 +55,8 @@ def build_pipeline(cfg: Config, device: str, seed: int = 0,
     else:
         fast_init_(vggish, seed + 1)
     pipeline = AVPipeline(cfg, VisualFrontend(cfg.visual, backbone, device),
-                          AudioFrontend(cfg.audio, vggish, device))
+                          AudioFrontend(cfg.audio, vggish, device,
+                                        use_pallas=cfg.audio.use_pallas))
     model = None
     if with_scorer:
         model = make_model(cfg.model, seed + 2, weights.get("scorer"))

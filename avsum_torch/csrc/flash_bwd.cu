@@ -31,16 +31,36 @@
 // O(S * D) bytes, so arithmetic. The TPU grid walked its inner blocks in
 // order, carrying dK/dV (or dQ) in VMEM scratch; here one block owns
 // (b, h, 32 rows) and loops over the 32-row tiles of the other side
-// itself, with its accumulators in registers (8 warps x 4 rows each;
-// lane i holds columns i, i+32, ...). In the score phase each lane owns
-// one row of the streamed tile, whose shared-memory rows are padded by
-// one float so the 32 lanes hit 32 banks; the resident rows are read as
-// float4 broadcasts. D = 256 makes the four 32 x D tiles ~128 KB of
-// dynamic shared memory, so one block runs per SM there. Plain FP32
-// FMAs; wgmma and TMA are later work.
+// itself, with its accumulators in registers.
+//
+// B3 runs its four products on the tensor cores, mma.sync m16n8k8 TF32 in
+// the 3xTF32 split for float32-level accuracy (mma_tf32.cuh; see the
+// note above the kernel for its tiling). mma.sync rather than wgmma: a
+// wgmma takes 64 rows, so 64-key blocks (64 blocks at [1, 1024, 4, D] on
+// 132 SMs) or 64-query tiles, and its shared-memory B operands would need
+// split (big, small) planes of every streamed Q / dO tile, which at
+// D = 256 do not fit beside the double buffers; mma.sync's fragments are
+// split in registers as they are loaded, and P^T and dS^T go through
+// shared memory in the layouts it takes. It reads q and dout with 16-byte
+// cp.async, so their (b, s, h) strides must be multiples of 4 floats and
+// their base addresses 16-byte aligned (the wrapper copies a tensor that
+// is not). Block shape:
+// 32 keys, so [1, 1024, 4, D] is 128 blocks, one wave on 132 SMs (a
+// 64-key block would leave half the SMs idle), and S = 7168 is 896. At
+// D = 256 its tiles are ~203 KB of shared memory, one block per SM; at
+// D = 128 ~107 KB, two.
+//
+// B4 is plain FP32 FMAs (8 warps x 4 rows each; lane i holds columns i,
+// i+32, ...). In the score phase each lane owns one row of the streamed
+// tile, whose shared-memory rows are padded by one float so the 32 lanes
+// hit 32 banks; the resident rows are read as float4 broadcasts. D = 256
+// makes its four 32 x D tiles ~128 KB of dynamic shared memory, so one
+// block runs per SM there.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -76,9 +96,54 @@ __device__ __forceinline__ float key_bias(const float* mask, int b, int S,
   return (mask == nullptr || mask[(long)b * S + key] > 0.f) ? 0.f : kMaskBias;
 }
 
-// B3: one block owns (b, h, keys [k0, k0 + 32)) and loops over query tiles.
+// B3: one block owns (b, h, keys [k0, k0 + 32)) and loops over tiles of 32
+// queries, on the tensor cores (3xTF32, mma_tf32.cuh). Per tile:
+//   products 1 and 2, S^T = K Q^T and dP^T = V dO^T over D, [32 keys x 32
+//   queries]: warps 0-3 compute S^T, warps 4-7 dP^T, each one 16-key
+//   m-tile x two 8-query n-tiles. The S^T warps write P^T = exp(S^T *
+//   scale + bias - LSE) to shared memory, the dP^T warps dP^T - delta;
+//   products 3 and 4, dV += P^T dO and dK += dS^T Q over the tile's 32
+//   queries, with dS^T = P^T o (dP^T - delta) formed as the A fragment is
+//   loaded: warp w owns columns [w D / 8, (w + 1) D / 8) of dK and dV for
+//   all 32 keys, in registers (64 a thread at D = 256).
+// Q and dO tiles are double-buffered: the next tile's 16-byte cp.async
+// copies (and its LSE and delta) are issued before this tile's products.
+// The [rows][D] tiles are stored with their 16-byte chunks XOR-swizzled
+// by the row (swizzle()), so that both the row-wise float4 fragment loads
+// of products 1-2 and the column-wise loads of products 3-4 hit 32
+// distinct banks; P^T and dP^T rows are padded to 40 floats for the same.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct DkvSmem {
+  static constexpr int kPitch = kTile + 8;  // P^T, dP^T rows
+  static constexpr size_t kFloats =
+      6 * (size_t)kBlock * D            // K, V, and two stages of Q, dO
+      + 2 * (size_t)kBlock * kPitch     // P^T, dP^T - delta
+      + 4 * (size_t)kTile;              // two stages of LSE, delta
+};
+
+__device__ __forceinline__ int swizzle(int r) { return (r & 6) ^ ((r & 1) << 2); }
+
+// Offset of element (r, c) of a swizzled [rows][D] tile.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((((c >> 2) ^ swizzle(r)) << 2) | (c & 3));
+}
+
+// cp.async rows [s0, s0 + 32) of a strided [S, D] head slice into a
+// swizzled tile; rows past S become zeros.
+template <int D>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long row_stride, int s0, int S) {
+  for (int i = threadIdx.x; i < kBlock * D / 4; i += kThreads) {
+    const int r = i / (D / 4), c = 4 * (i % (D / 4)), s = s0 + r;
+    const bool in = s < S;
+    tf32::cp_async16(dst + swz<D>(r, c), src + (in ? s * row_stride + c : 0),
+                     in ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ mask,  // [B, S] or null
@@ -88,133 +153,176 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int H, long qsb, long qss, long qsh, long ksb, long kss,
                      long ksh, long vsb, long vss, long vsh, long dsb,
                      long dss, long dsh, float scale) {
-  constexpr int kCols = D / 32;
+  using Smem = DkvSmem<D>;
+  constexpr int kPitch = Smem::kPitch;
+  constexpr int NT = D / 64;  // 8-column tiles of dK / dV per warp
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sk = smem;                        // [kBlock][D]  resident keys
-  float* sv = sk + kBlock * D;             // [kBlock][D]  resident values
-  float* sq = sv + kBlock * D;             // [kTile][D + 1]
-  float* sdo = sq + kTile * (D + 1);       // [kTile][D + 1]
-  float* sp = sdo + kTile * (D + 1);       // [kBlock][kTile]  P^T
-  float* sds = sp + kBlock * kTile;        // [kBlock][kTile]  dS^T
-  float* slse = sds + kBlock * kTile;      // [kTile]
-  float* sdelta = slse + kTile;            // [kTile]
+  float* sk = reinterpret_cast<float*>(smem4);  // [kBlock][D] swizzled
+  float* sv = sk + kBlock * D;                  // [kBlock][D]
+  float* sq = sv + kBlock * D;                  // [2][kTile][D]
+  float* sdo = sq + 2 * kTile * D;              // [2][kTile][D]
+  float* sp = sdo + 2 * kTile * D;              // [kBlock][kPitch]  P^T
+  float* sdp = sp + kBlock * kPitch;            // [kBlock][kPitch]  dP^T - delta
+  float* slse = sdp + kBlock * kPitch;          // [2][kTile]
+  float* sdelta = slse + 2 * kTile;             // [2][kTile]
 
   const int k0 = blockIdx.x * kBlock;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const float* qb = q + b * qsb + h * qsh;
   const float* dob = dout + b * dsb + h * dsh;
   const float* lseb = lse + ((long)b * H + h) * S;
   const float* deltab = delta + ((long)b * H + h) * S;
-  load_tile<D, kBlock>(sk, D, k + b * ksb + h * ksh, kss, k0, S);
-  load_tile<D, kBlock>(sv, D, v + b * vsb + h * vsh, vss, k0, S);
 
-  float bias[kRows];
+  auto copy_tile = [&](int q0, int buf) {
+    copy_rows<D>(sq + buf * kTile * D, qb, qss, q0, S);
+    copy_rows<D>(sdo + buf * kTile * D, dob, dss, q0, S);
+    if (threadIdx.x < 2 * kTile) {
+      const int i = threadIdx.x % kTile, s = q0 + i;
+      const float* src = threadIdx.x < kTile ? lseb : deltab;
+      float* dst = (threadIdx.x < kTile ? slse : sdelta) + buf * kTile + i;
+      tf32::cp_async4(dst, src + (s < S ? s : 0), s < S);
+    }
+  };
+  copy_rows<D>(sk, k + b * ksb + h * ksh, kss, k0, S);
+  copy_rows<D>(sv, v + b * vsb + h * vsh, vss, k0, S);
+  copy_tile(0, 0);
+  tf32::cp_async_commit();
+
+  // products 1-2: this warp's product, key m-tile and query n-tiles
+  const bool dp_warp = warp >= 4;
+  const int mrow = 16 * ((warp >> 1) & 1) + g;  // key rows mrow, mrow + 8
+  const int ncol = 16 * (warp & 1);             // queries ncol .. ncol + 15
+  const float* a_tile = dp_warp ? sv : sk;
+  float bias[2];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int key = k0 + warp * kRows + r;
-    bias[r] = key < S ? key_bias(mask, b, S, key) : 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + mrow + 8 * i;
+    bias[i] = key < S ? key_bias(mask, b, S, key) : 0.f;
   }
-  float acc_k[kRows][kCols], acc_v[kRows][kCols];
+  // products 3-4: dK, dV columns [cb, cb + D / 8)
+  const int cb = warp * (D / 8);
+  float acc_k[2][NT][4], acc_v[2][NT][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[m][n][e] = acc_v[m][n][e] = 0.f;
 
-  const float4* krow4 = reinterpret_cast<const float4*>(sk + warp * kRows * D);
-  const float4* vrow4 = reinterpret_cast<const float4*>(sv + warp * kRows * D);
-  for (int q0 = 0; q0 < S; q0 += kTile) {
-    __syncthreads();  // K, V loaded / the previous tile consumed
-    load_tile<D, kTile>(sq, D + 1, qb, qss, q0, S);
-    load_tile<D, kTile>(sdo, D + 1, dob, dss, q0, S);
-    if (threadIdx.x < kTile) {
-      const int s = q0 + threadIdx.x;
-      slse[threadIdx.x] = s < S ? lseb[s] : 0.f;
-      sdelta[threadIdx.x] = s < S ? deltab[s] : 0.f;
-    }
-    __syncthreads();
+  const int n_tiles = (S + kTile - 1) / kTile;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1, q0 = it * kTile;
+    tf32::cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < n_tiles) copy_tile(q0 + kTile, buf ^ 1);
+    tf32::cp_async_commit();
+    const float* tq = sq + buf * kTile * D;
+    const float* tdo = sdo + buf * kTile * D;
 
-    // scores and dP^T: lane = query, warp = kRows keys
-    float sc[kRows], dp[kRows];
+    // products 1-2. Over each 16 columns d0 .. d0 + 15 of D, lane (g, t)
+    // loads the float4 at d0 + 4t of its A and B rows: k-step 0 takes
+    // columns d0 + 4t (k = t) and d0 + 4t + 1 (k = t + 4), k-step 1 the
+    // other two; A and B agree, so the sum is over all 16, one mma3.
+    {
+      const float* bt = dp_warp ? tdo : tq;
+      float acc[2][4] = {};
+#pragma unroll 4
+      for (int d0 = 0; d0 < D; d0 += 16) {
+        const int c = d0 + 4 * t;
+        const float4 lo = *reinterpret_cast<const float4*>(a_tile + swz<D>(mrow, c));
+        const float4 hi = *reinterpret_cast<const float4*>(a_tile + swz<D>(mrow + 8, c));
+        tf32::FragA fa[2];
+        fa[0].set(0, lo.x); fa[0].set(1, hi.x); fa[0].set(2, lo.y); fa[0].set(3, hi.y);
+        fa[1].set(0, lo.z); fa[1].set(1, hi.z); fa[1].set(2, lo.w); fa[1].set(3, hi.w);
+        tf32::FragB fb[2][2];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) sc[r] = dp[r] = 0.f;
-    const float* qrow = sq + lane * (D + 1);
-    const float* dorow = sdo + lane * (D + 1);
-#pragma unroll 2
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      float qd[4], dod[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        qd[t] = qrow[4 * d4 + t];
-        dod[t] = dorow[4 * d4 + t];
+        for (int n = 0; n < 2; ++n) {
+          const float4 x = *reinterpret_cast<const float4*>(bt + swz<D>(ncol + 8 * n + g, c));
+          fb[0][n].set(0, x.x); fb[0][n].set(1, x.y);
+          fb[1][n].set(0, x.z); fb[1][n].set(1, x.w);
+        }
+        tf32::mma3<2, 2>(acc, fa, fb);
       }
+      // c0..c3 of tile n: (key mrow, query 2t), (mrow, 2t + 1), (mrow + 8, ..)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 kk = krow4[r * (D / 4) + d4];
-        const float4 vv = vrow4[r * (D / 4) + d4];
-        sc[r] = fmaf(kk.x, qd[0], sc[r]);
-        sc[r] = fmaf(kk.y, qd[1], sc[r]);
-        sc[r] = fmaf(kk.z, qd[2], sc[r]);
-        sc[r] = fmaf(kk.w, qd[3], sc[r]);
-        dp[r] = fmaf(vv.x, dod[0], dp[r]);
-        dp[r] = fmaf(vv.y, dod[1], dp[r]);
-        dp[r] = fmaf(vv.z, dod[2], dp[r]);
-        dp[r] = fmaf(vv.w, dod[3], dp[r]);
-      }
-    }
-    const bool q_in = q0 + lane < S;
-    const float l = slse[lane], dl = sdelta[lane];
+      for (int n = 0; n < 2; ++n) {
+        const int qi = ncol + 8 * n + 2 * t;
+        float out[4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float p = q_in ? expf(sc[r] * scale + bias[r] - l) : 0.f;
-      sp[(warp * kRows + r) * kTile + lane] = p;
-      sds[(warp * kRows + r) * kTile + lane] = p * (dp[r] - dl);
-    }
-    __syncwarp();
-
-    // dV += P^T dO, dK += dS^T Q over this warp's keys
-    const float4* prow4 = reinterpret_cast<const float4*>(sp + warp * kRows * kTile);
-    const float4* dsrow4 = reinterpret_cast<const float4*>(sds + warp * kRows * kTile);
-    for (int i4 = 0; i4 < kTile / 4; ++i4) {
-      float pr[kRows][4], dsr[kRows][4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pp = prow4[r * (kTile / 4) + i4];
-        const float4 dd = dsrow4[r * (kTile / 4) + i4];
-        pr[r][0] = pp.x; pr[r][1] = pp.y; pr[r][2] = pp.z; pr[r][3] = pp.w;
-        dsr[r][0] = dd.x; dsr[r][1] = dd.y; dsr[r][2] = dd.z; dsr[r][3] = dd.w;
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int i = 4 * i4 + t;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const float doc = sdo[i * (D + 1) + lane + 32 * c];
-          const float qc = sq[i * (D + 1) + lane + 32 * c];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            acc_v[r][c] = fmaf(pr[r][t], doc, acc_v[r][c]);
-            acc_k[r][c] = fmaf(dsr[r][t], qc, acc_k[r][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int qq = qi + (e & 1);
+          if (dp_warp) {
+            out[e] = acc[n][e] - sdelta[buf * kTile + qq];
+          } else {
+            out[e] = q0 + qq < S
+                ? expf(acc[n][e] * scale + bias[e >> 1] - slse[buf * kTile + qq])
+                : 0.f;
           }
         }
+        float* dst = dp_warp ? sdp : sp;
+        *reinterpret_cast<float2*>(dst + mrow * kPitch + qi) = make_float2(out[0], out[1]);
+        *reinterpret_cast<float2*>(dst + (mrow + 8) * kPitch + qi) = make_float2(out[2], out[3]);
+      }
+    }
+    __syncthreads();  // P^T and dP^T - delta are in shared memory
+
+    // products 3-4. K-step j covers queries 8j .. 8j + 7: k = t is query
+    // 8j + 2t and k = t + 4 is query 8j + 2t + 1, in A (a float2 of the
+    // P^T row) and in B (rows 8j + 2t, 8j + 2t + 1 of dO and Q) alike.
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      const int qi = 8 * j + 2 * t;
+      tf32::FragA fp[2], fs[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r = 16 * m + g;
+        const float2 p_lo = *reinterpret_cast<const float2*>(sp + r * kPitch + qi);
+        const float2 p_hi = *reinterpret_cast<const float2*>(sp + (r + 8) * kPitch + qi);
+        const float2 d_lo = *reinterpret_cast<const float2*>(sdp + r * kPitch + qi);
+        const float2 d_hi = *reinterpret_cast<const float2*>(sdp + (r + 8) * kPitch + qi);
+        fp[m].set(0, p_lo.x); fp[m].set(1, p_hi.x);
+        fp[m].set(2, p_lo.y); fp[m].set(3, p_hi.y);
+        fs[m].set(0, p_lo.x * d_lo.x); fs[m].set(1, p_hi.x * d_hi.x);
+        fs[m].set(2, p_lo.y * d_lo.y); fs[m].set(3, p_hi.y * d_hi.y);
+      }
+      tf32::FragB fo[NT], fq[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int c = cb + 8 * n + g;
+        fo[n].set(0, tdo[swz<D>(qi, c)]);
+        fo[n].set(1, tdo[swz<D>(qi + 1, c)]);
+        fq[n].set(0, tq[swz<D>(qi, c)]);
+        fq[n].set(1, tq[swz<D>(qi + 1, c)]);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        tf32::mma3_row<NT>(acc_v[m], fp[m], fo);
+        tf32::mma3_row<NT>(acc_k[m], fs[m], fq);
       }
     }
   }
 
+  // c0..c3 of (m, n): (key 16m + g, column cb + 8n + 2t), (.., + 1),
+  // (key 16m + g + 8, ..)
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int s = k0 + warp * kRows + r;
-    if (s >= S) continue;
-    const long row = (((long)b * S + s) * H + h) * D;
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      dk[row + lane + 32 * c] = acc_k[r][c] * scale;
-      dv[row + lane + 32 * c] = acc_v[r][c];
+    for (int i = 0; i < 2; ++i) {
+      const int s = k0 + 16 * m + g + 8 * i;
+      if (s >= S) continue;
+      const long row = (((long)b * S + s) * H + h) * D + cb + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<float2*>(dk + row + 8 * n) =
+            make_float2(acc_k[m][n][2 * i] * scale, acc_k[m][n][2 * i + 1] * scale);
+        *reinterpret_cast<float2*>(dv + row + 8 * n) =
+            make_float2(acc_v[m][n][2 * i], acc_v[m][n][2 * i + 1]);
+      }
     }
-  }
 }
 
 // B4: one block owns (b, h, queries [q0, q0 + 32)) and loops over key tiles.
@@ -345,7 +453,7 @@ struct Args {
 
 template <int D>
 int launch_dkv(const Args& a, float* dk, float* dv) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
+  const size_t smem = DkvSmem<D>::kFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

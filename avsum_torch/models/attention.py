@@ -24,11 +24,11 @@ FLASH_MIN_SEQ = 512
 
 
 def kernel_enabled(flag: Optional[bool] = None) -> bool:
-    """Resolve the tri-state ``model.use_pallas``: ``None`` (auto) and
-    ``True`` enable the attention kernels, ``False`` disables them on every
-    device. The JAX package's ``pallas_enabled`` resolves ``None`` by its
-    backend; here the tensor's device decides inside
-    :func:`flash_attention`."""
+    """Resolve a tri-state ``use_pallas`` (``model.use_pallas`` for the
+    attention kernels, ``audio.use_pallas`` for the log-mel one): ``None``
+    (auto) and ``True`` enable the kernels, ``False`` disables them on
+    every device. The JAX package's ``pallas_enabled`` resolves ``None`` by
+    its backend; here the tensor's device decides inside each wrapper."""
     return flag is not False
 
 

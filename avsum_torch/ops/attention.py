@@ -213,12 +213,24 @@ def _bwd_args(q, k, v, do, mask, lse, delta):
     return mask, lead, tail
 
 
+def _vec4(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its base address is 16-byte aligned and its
+    (b, s, h) strides are multiples of 4 floats, as B3's 16-byte copies
+    need (slices of the fused qkv projection are); a contiguous copy
+    otherwise."""
+    if t.data_ptr() % 16 == 0 and all(
+            st % 4 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_bwd_dkv(q, k, v, do, mask, lse, delta):
     """B3: -> (dk, dv) [B, S, H, D] f32 contiguous; ``do`` is read through
     its strides, ``lse`` and ``delta`` are [B, H, S]. The plain version for
     CPU tensors."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, mask, lse, delta)
+    q, k, v, do = map(_vec4, (q, k, v, do))
     mask, lead, tail = _bwd_args(q, k, v, do, mask, lse, delta)
     dk = torch.empty(q.shape, device=q.device, dtype=torch.float32)
     dv = torch.empty_like(dk)

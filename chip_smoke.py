@@ -22,9 +22,11 @@ raising on failure:
    ``--resume`` for a third: K2, B3 and B4 must run, the loss must be
    finite, the checkpoint written and the resumed run start at epoch 2;
 6. each kernel against its plain PyTorch version on the card, float32
-   with TF32 off, on fixed cases and at the shapes the runs gave it, with
-   CUDA-event times of both at those shapes; the flash backward also
-   against autograd of the plain attention;
+   with TF32 off, on fixed cases and at the shapes the runs gave it (K1
+   also at 64 mel bands and on a quiet waveform; B3 also at S = 7168),
+   with CUDA-event times of both at those shapes, taken in turns over 5
+   rounds (median, min-max); the flash backward also against autograd of
+   the plain attention;
 7. one hour-scale train step on the card against the same step on the
    CPU (same parameters and batch, dropout 0): loss, every gradient and
    the parameters after 3 steps;
@@ -83,6 +85,25 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def compare_ms(fns: dict, rounds: int = 5, iters: int = 20) -> dict:
+    """``{name: fn}`` -> ``{name: (median, min, max)}`` milliseconds by
+    :func:`cuda_ms`, the functions timed in turns in each of ``rounds``
+    rounds (the order reversed every other round), so a kernel and its
+    plain version see the same clocks and neighbours."""
+    import numpy as np
+
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(cuda_ms(fns[name], iters))
+    return {name: (float(np.median(t)), min(t), max(t))
+            for name, t in times.items()}
+
+
+def fmt_ms(t: tuple) -> str:
+    return f"{t[0]:.3f} ms ({t[1]:.3f}-{t[2]:.3f})"
+
+
 def phase_build() -> dict:
     from avsum_torch import build
 
@@ -105,34 +126,59 @@ def _waveform(n: int, seed: int):
     return (x + 0.02 * rng.standard_normal(n)).astype(np.float32)
 
 
+def _quiet_waveform():
+    """A tone at 0.5, then a stretch at 5e-4 (60 dB down), then 1 s of
+    exact silence."""
+    import numpy as np
+
+    t = np.arange(16000) / 16000
+    rng = np.random.default_rng(7)
+    return np.concatenate([
+        0.5 * np.sin(2 * np.pi * 440 * t),
+        5e-4 * (np.sin(2 * np.pi * 3000 * t)
+                + 0.5 * rng.standard_normal(16000)),
+        np.zeros(16000)]).astype(np.float32)
+
+
 def check_k1(path_samples: list) -> dict:
-    """K1 vs its plain version on 10 s, 607 s and odd-length waveforms
-    and at the bucketed lengths the main path gave it; times at the
-    latter (the JSON keeps the longest)."""
+    """K1 vs its plain version at 128 and 64 mel bands on 10 s, 607 s,
+    odd-length and quiet waveforms and at the bucketed lengths the main
+    path gave it; times at the latter (the JSON keeps the longest, at 128
+    bands)."""
     import torch
 
     from avsum_torch.ops.melspec import fused_log_mel, log_mel_plain
 
     worst, timing = 0.0, {}
-    cases = [("10 s", 160_000), ("607 s", 607 * 16000), ("odd", 48_123)]
-    cases += [(f"path {n}", n) for n in sorted(set(path_samples))]
-    for name, n in cases:
-        x = torch.from_numpy(_waveform(n, seed=n)).cuda()
-        mel_k, lm_k = fused_log_mel(x)
-        mel_p, lm_p = log_mel_plain(x)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(mel_k, mel_p, **K1_TOL)
-        torch.testing.assert_close(lm_k, lm_p, **K1_TOL)
-        err = (lm_k - lm_p).abs().max().item()
-        rel = ((mel_k - mel_p).abs().max() / mel_p.abs().max()).item()
-        worst = max(worst, err)
-        print(f"K1 {name}: frames {mel_k.shape[0]}, max|dlog2mel| {err:.3e}, "
-              f"max|dmel|/max|mel| {rel:.3e}")
-        if name.startswith("path"):
-            timing = {"ms": cuda_ms(lambda: fused_log_mel(x)),
-                      "plain_ms": cuda_ms(lambda: log_mel_plain(x))}
-            print(f"K1 at the path's {n} samples: kernel {timing['ms']:.3f} "
-                  f"ms, plain {timing['plain_ms']:.3f} ms")
+    cases = [("10 s", _waveform(160_000, seed=160_000)),
+             ("607 s", _waveform(607 * 16000, seed=607 * 16000)),
+             ("odd", _waveform(48_123, seed=48_123)),
+             ("quiet", _quiet_waveform())]
+    cases += [(f"path {n}", _waveform(n, seed=n))
+              for n in sorted(set(path_samples))]
+    for n_mels in (128, 64):
+        for name, wave in cases:
+            x = torch.from_numpy(wave).cuda()
+            mel_k, lm_k = fused_log_mel(x, n_mels=n_mels)
+            mel_p, lm_p = log_mel_plain(x, n_mels=n_mels)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(mel_k, mel_p, **K1_TOL)
+            torch.testing.assert_close(lm_k, lm_p, **K1_TOL)
+            err = (lm_k - lm_p).abs().max().item()
+            rel = ((mel_k - mel_p).abs().max() / mel_p.abs().max()).item()
+            worst = max(worst, err)
+            print(f"K1 {n_mels} mels, {name}: frames {mel_k.shape[0]}, "
+                  f"max|dlog2mel| {err:.3e}, max|dmel|/max|mel| {rel:.3e}")
+            if name.startswith("path") and (n_mels == 128
+                                            or x.numel() == max(path_samples)):
+                t = compare_ms({
+                    "kernel": lambda: fused_log_mel(x, n_mels=n_mels),
+                    "plain": lambda: log_mel_plain(x, n_mels=n_mels)})
+                print(f"K1 {n_mels} mels at the path's {x.numel()} samples: "
+                      f"kernel {fmt_ms(t['kernel'])}, plain "
+                      f"{fmt_ms(t['plain'])}")
+                if n_mels == 128:
+                    timing = {"ms": t["kernel"][0], "plain_ms": t["plain"][0]}
     return {"max_abs_err": worst, **timing}
 
 
@@ -177,11 +223,12 @@ def check_k2(path_seq: int) -> dict:
             print(f"K2 D={d} S={s}: max|dout| {err:.3e}")
     qkv, mask, _ = _flash_case(1, path_seq, 256, seed=7)
     q, k, v = qkv.unbind(2)
-    ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, mask))
-    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, mask))
-    print(f"K2 at the path's [1, {path_seq}, 4, 256]: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    t = compare_ms({"kernel": lambda: flash_attention_fwd(q, k, v, mask),
+                    "plain": lambda: attention_plain(q, k, v, mask)})
+    print(f"K2 at the path's [1, {path_seq}, 4, 256]: kernel "
+          f"{fmt_ms(t['kernel'])}, plain {fmt_ms(t['plain'])}")
+    return {"max_abs_err": worst, "ms": t["kernel"][0],
+            "plain_ms": t["plain"][0]}
 
 
 def _grads(fn, qkv, mask, cot):
@@ -210,7 +257,7 @@ def check_b34() -> tuple:
 
     worst = {"dkv": 0.0, "dq": 0.0}
     for d in (128, 256):
-        for s in (512, 544, 1000, 1024):
+        for s in (40, 512, 544, 1000, 1024, 2049):
             qkv, mask, cot = _flash_case(2, s, d, seed=s + d)
             args = _bwd_inputs(qkv, mask, cot)
             dk, dv = att.flash_bwd_dkv(*args)
@@ -222,30 +269,46 @@ def check_b34() -> tuple:
             torch.cuda.synchronize()
             for a, b_ in ((dk, pk), (dv, pv), (dq, pq), *zip(got, want)):
                 torch.testing.assert_close(a, b_, **B34_TOL)
-            worst["dkv"] = max(worst["dkv"], (dk - pk).abs().max().item(),
-                               (dv - pv).abs().max().item())
+            dkv = max((dk - pk).abs().max().item(),
+                      (dv - pv).abs().max().item())
+            worst["dkv"] = max(worst["dkv"], dkv)
             worst["dq"] = max(worst["dq"], (dq - pq).abs().max().item())
             auto = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
-            print(f"B3/B4 D={d} S={s}: max|d(dk,dv)| vs plain "
-                  f"{worst['dkv']:.3e}, max|d dq| {worst['dq']:.3e}, "
-                  f"grads vs autograd of the plain attention {auto:.3e}")
+            print(f"B3/B4 D={d} S={s}: max|d(dk,dv)| vs plain {dkv:.3e}, "
+                  f"max|d dq| {worst['dq']:.3e}, grads vs autograd of the "
+                  f"plain attention {auto:.3e}")
     timing = {}
     for d in (256, 128):
         qkv, mask, cot = _flash_case(1, 1024, d, seed=d)
         args = _bwd_inputs(qkv, mask, cot)
-        t = {"dkv": cuda_ms(lambda: att.flash_bwd_dkv(*args)),
-             "dkv_plain": cuda_ms(lambda: att.flash_bwd_dkv_plain(*args)),
-             "dq": cuda_ms(lambda: att.flash_bwd_dq(*args)),
-             "dq_plain": cuda_ms(lambda: att.flash_bwd_dq_plain(*args))}
-        route = [cuda_ms(lambda: _grads(fn, qkv, mask, cot))
-                 for fn in (att.flash_attention, att.attention_plain,
-                            att.flash_attention, att.attention_plain)]
-        print(f"B3/B4 at [1, 1024, 4, {d}]: B3 {t['dkv']:.3f} ms (plain "
-              f"{t['dkv_plain']:.3f}), B4 {t['dq']:.3f} ms (plain "
-              f"{t['dq_plain']:.3f}); forward+backward, kernel route "
-              f"{route[0]:.3f} / {route[2]:.3f} ms, plain route "
-              f"{route[1]:.3f} / {route[3]:.3f} ms")
-        timing.setdefault(d, t)
+        t = compare_ms({
+            "dkv": lambda: att.flash_bwd_dkv(*args),
+            "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args),
+            "dq": lambda: att.flash_bwd_dq(*args),
+            "dq_plain": lambda: att.flash_bwd_dq_plain(*args),
+            "route": lambda: _grads(att.flash_attention, qkv, mask, cot),
+            "route_plain": lambda: _grads(att.attention_plain, qkv, mask,
+                                          cot)})
+        print(f"B3/B4 at [1, 1024, 4, {d}]: B3 {fmt_ms(t['dkv'])}, plain "
+              f"{fmt_ms(t['dkv_plain'])}; B4 {fmt_ms(t['dq'])}, plain "
+              f"{fmt_ms(t['dq_plain'])}; forward+backward, kernel route "
+              f"{fmt_ms(t['route'])}, plain route {fmt_ms(t['route_plain'])}")
+        timing.setdefault(d, {k: v[0] for k, v in t.items()})
+    for d in (256, 128):  # the hour step's shapes, one B3 launch each
+        qkv, mask, cot = _flash_case(1, 7168, d, seed=d)
+        mask.fill_(1.0)
+        args = _bwd_inputs(qkv, mask, cot)
+        dk, dv = att.flash_bwd_dkv(*args)
+        pk, pv = att.flash_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dk, pk, **B34_TOL)
+        torch.testing.assert_close(dv, pv, **B34_TOL)
+        del dk, dv, pk, pv
+        t = compare_ms({"dkv": lambda: att.flash_bwd_dkv(*args),
+                        "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args)},
+                       iters=5)
+        print(f"B3 at [1, 7168, 4, {d}]: kernel {fmt_ms(t['dkv'])}, plain "
+              f"{fmt_ms(t['dkv_plain'])}")
     t = timing[256]
     return ({"max_abs_err": worst["dkv"], "ms": t["dkv"],
              "plain_ms": t["dkv_plain"]},
@@ -257,7 +320,7 @@ def _write_feature_cache(cache_dir: str, n: int, seed: int) -> None:
     """``n`` videos of 600-1000 shots at 4096 / 296 dims, seeded."""
     import numpy as np
 
-    from avsum_tpu.data.cache import FeatureCache
+    from avsum_torch.data import FeatureCache
 
     rng = np.random.default_rng(seed)
     cache = FeatureCache(cache_dir)
@@ -346,7 +409,7 @@ def compare_train_step() -> None:
 
     from avsum_torch.models.scorer import make_model
     from avsum_torch.train import steps
-    from avsum_tpu.train.config import load_config
+    from avsum_torch.train.config import load_config
 
     cfg = load_config(HOUR_CONFIG, ["mesh.seq=1", "model.dropout=0",
                                     "train.warmup_steps=1"])
@@ -376,12 +439,14 @@ def compare_train_step() -> None:
     loss_err = max(abs(a - b) for a, b in zip(l_card, l_cpu))
     grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                    for a, b in zip(g_card, g_cpu))
-    param_err = max((p_card[k] - p_cpu[k]).abs().max().item() for k in p_cpu)
+    worst = max(p_cpu, key=lambda k: (p_card[k] - p_cpu[k]).abs().max())
+    param_err = (p_card[worst] - p_cpu[worst]).abs().max().item()
     moved = max((p_cpu[k] - v).abs().max().item()
                 for k, v in make_model(cfg.model, seed=0).state_dict().items())
     print(f"train step card vs CPU: losses {l_card} / {l_cpu}, max|dloss| "
           f"{loss_err:.2e}, max grad error / max|g| {grad_err:.2e}, params "
-          f"after 3 steps max|d| {param_err:.2e} (moved up to {moved:.2e})")
+          f"after 3 steps max|d| {param_err:.2e} in {worst} (moved up to "
+          f"{moved:.2e})")
     if loss_err > PARAM_TOL or grad_err > GRAD_TOL or param_err > PARAM_TOL:
         raise AssertionError("the card's train step disagrees with the CPU's")
 
@@ -393,7 +458,7 @@ def hour_step() -> None:
 
     from avsum_torch.models.scorer import make_model
     from avsum_torch.train import steps
-    from avsum_tpu.train.config import load_config
+    from avsum_torch.train.config import load_config
 
     cfg = load_config(HOUR_CONFIG, ["mesh.seq=1", "model.remat=true"])
     s = 7168
@@ -426,7 +491,7 @@ def hour_step() -> None:
 
 def _video(stem: str, n_scenes: int, height: int, width: int,
            scene_len: tuple, seed: int) -> None:
-    from avsum_tpu.io.synthetic import write_scene_video
+    from avsum_torch.io import write_scene_video
 
     t0 = time.perf_counter()
     write_scene_video(stem, n_scenes=n_scenes, seed=seed, height=height,
@@ -480,7 +545,7 @@ def check_against_cpu(pipeline, model, path: str, result: dict) -> None:
 
     from avsum_torch.audio.frontend import AudioFrontend
     from avsum_torch.audio.vggish import VGGish
-    from avsum_tpu.io.wav import load_audio_mono_16k_ship
+    from avsum_torch.io import load_audio_mono_16k_ship
 
     p = pipeline.process_video(path)
     card = pipeline.score(p, model)
@@ -520,8 +585,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from avsum_torch.cli.main import build_pipeline
-    from avsum_tpu.io.wav import load_audio_mono_16k_ship
-    from avsum_tpu.train.config import load_config
+    from avsum_torch.io import load_audio_mono_16k_ship
+    from avsum_torch.train.config import load_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -4,6 +4,8 @@ AudioFrontend. float32; rtol 1e-4, with an atol of 1e-4 where outputs
 cross zero (MFCC coefficients, ReLU outputs) or are dB values summed
 over 128 bands."""
 
+import warnings
+
 import jax
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from avsum_tpu.audio.vggish import vggish_log_mel_patches as jax_patches
 from avsum_tpu.ops import spectral as jsp
 from avsum_tpu.train.config import AudioFeatConfig
 from avsum_tpu.vision.backbone import fast_init
+from avsum_torch.audio import frontend as frontend_mod
 from avsum_torch.audio.frontend import AudioFrontend
 from avsum_torch.audio.vggish import VGGish, vggish_log_mel_patches
 from avsum_torch.convert import vggish_from_flax
@@ -104,3 +107,58 @@ def test_shot_features_match_jax(vggish_params, dtype):
     got = AudioFrontend(cfg, vggish, "cpu").shot_features(wave, bounds)
     assert got.shape == (5, 296)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("via", ["config", "argument"])
+def test_use_pallas_false_keeps_the_kernel_off(monkeypatch, vggish_params,
+                                               via):
+    """``audio.use_pallas=False`` (in the config, or as the argument) takes
+    the plain spectral path: the kernel's wrapper is never called, and the
+    features equal the JAX front-end's XLA path."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("fused_log_mel called with use_pallas=False")
+
+    monkeypatch.setattr(frontend_mod, "fused_log_mel", refuse)
+    wave = _wave(2 * 16000 + 301, seed=12)
+    bounds = np.array([[0, 12000], [12000, 20000], [20000, 32301]],
+                      np.float64)
+    cfg = AudioFeatConfig(use_pallas=False if via == "config" else None)
+    kwargs = {"use_pallas": False} if via == "argument" else {}
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(JaxAudioFrontend(cfg, vggish_params, use_pallas=False)
+                         .shot_features(wave, bounds))
+    vggish = VGGish()
+    vggish.load_state_dict(vggish_from_flax(vggish_params))
+    front = AudioFrontend(cfg, vggish, "cpu", **kwargs)
+    assert front.use_kernel is False
+    got = front.shot_features(wave, bounds)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("flag,n_fft,kernel,warns", [
+    (None, 400, True, False), (True, 400, True, False),
+    (False, 400, False, False), (None, 512, False, False),
+    (True, 512, False, True)])
+def test_use_pallas_resolves_like_the_jax_front_end(monkeypatch, flag, n_fft,
+                                                    kernel, warns):
+    """None and True turn the kernel on, False off; an explicit True with
+    n_fft != 2 * hop_length warns and takes the plain path, as
+    ``avsum_tpu.audio.frontend.AudioFrontend`` does."""
+    calls = []
+    real = frontend_mod.fused_log_mel
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["n_mels"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(frontend_mod, "fused_log_mel", spy)
+    cfg = AudioFeatConfig(n_fft=n_fft, hop_length=200, use_pallas=flag)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        front = AudioFrontend(cfg, VGGish(), "cpu")
+    refused = [w for w in caught if "n_fft == 2*hop_length" in str(w.message)]
+    assert len(refused) == len(caught) == int(warns)
+    assert front.use_kernel is kernel
+    mf, lm, _ = front.full_features(_wave(16000, seed=2))  # padded to 2^14
+    assert lm.shape == (82, 128) and mf.shape == (82, 40)
+    assert calls == ([128] if kernel else [])
