@@ -8,12 +8,11 @@ built at first use by :mod:`avsum_torch.build` and bound with ctypes. Each kerne
 wrapper launches it for a CUDA tensor and runs the plain PyTorch version of
 the same math for a CPU tensor.
 
-This package imports ``torch`` and never ``jax`` or ``flax``. From
-``avsum_tpu`` it imports only the numpy/ctypes media layer (``io``), the
-config dataclasses (``train.config``) and the numpy data modules
-(``data.batching``, ``cache``, ``splits``, ``tvsum``, ``summe``,
-``synthetic``); ``avsum_tpu.utils`` is out of reach, because its package
-``__init__`` imports jax.
+This package imports ``torch`` and nothing of ``jax``, ``flax``, ``optax``
+or ``avsum_tpu``. It keeps its own copies of the JAX package's numpy
+modules: the media layer (``io/``), the config dataclasses and their
+YAML loader (``train/config.py``) and the feature cache, batching,
+splits and dataset parsers (``data/``).
 
 Layout (mirrors ``avsum_tpu``):
 
@@ -25,7 +24,9 @@ Layout (mirrors ``avsum_tpu``):
 - ``temporal/``  host shot-boundary helpers, shot <-> annotation alignment
   (numpy)
 - ``summary/``   knapsack selection and evaluation metrics (numpy)
-- ``data/``      training examples from the feature cache
+- ``io/``        video and audio decode, the native Y4M decoder, synthetic
+  media (numpy, ctypes)
+- ``data/``      the feature cache, batching, splits, dataset parsers
 - ``train/``     train / eval steps and the optax optimizer, checkpoints,
   the trainer
 - ``utils/``     the JSONL scalar logger

@@ -26,7 +26,7 @@ from avsum_torch.audio.vggish import (
 from avsum_torch.models.attention import kernel_enabled
 from avsum_torch.ops.melspec import fused_log_mel
 from avsum_torch.ops.spectral import amplitude_to_db, dct_matrix, mel_spectrogram
-from avsum_tpu.train.config import AudioFeatConfig
+from avsum_torch.train.config import AudioFeatConfig
 
 VGGISH_BATCH = 256  # patches per VGGish call (bounds activation memory)
 

@@ -9,7 +9,7 @@
   it as ``<lib>.log``.
 - The host decoder ``native/avsumio.cc`` compiles with ``g++`` (no
   ``-march=native``) into ``native/build/libavsumio.so``, the first place
-  ``avsum_tpu.io.native`` looks. Call :func:`ensure_native_io` before the
+  ``avsum_torch.io.native`` looks. Call :func:`ensure_native_io` before the
   first video is opened in the process.
 
 Run ``python -m avsum_torch.build`` to build everything (the kernels in

@@ -27,7 +27,7 @@ from typing import List, Optional
 
 import torch
 
-from avsum_tpu.train.config import Config, load_config
+from avsum_torch.train.config import Config, load_config
 
 log = logging.getLogger("avsum_torch.cli")
 
@@ -113,7 +113,7 @@ def _load_examples(cfg: Config, video_ids=None):
         load_summe_examples,
         load_tvsum_examples,
     )
-    from avsum_tpu.data.cache import FeatureCache
+    from avsum_torch.data.cache import FeatureCache
 
     cache = FeatureCache(cfg.data.cache_dir)
     if cfg.data.dataset == "tvsum":
@@ -126,8 +126,8 @@ def _load_examples(cfg: Config, video_ids=None):
 def cmd_train(args) -> int:
     from avsum_torch.models.scorer import make_model
     from avsum_torch.train.trainer import Trainer
-    from avsum_tpu.data.batching import batch_iterator
-    from avsum_tpu.data.splits import load_splits
+    from avsum_torch.data.batching import batch_iterator
+    from avsum_torch.data.splits import load_splits
 
     cfg = load_config(args.config, args.overrides)
     split = None

@@ -14,11 +14,12 @@ state_dicts. The inverse of ``avsum_tpu/vision/port_torch.py`` and
   ``MultiHeadSelfAttention_0`` -> ``attention`` and ``Dense_{0,1}`` ->
   ``dense_{0,1}``.
 
-``python -m avsum_torch.convert --checkpoint DIR --out FILE.pt`` turns a
-JAX scorer checkpoint into ``{"scorer": state_dict}`` for
-``avsum_torch.cli summarize --weights FILE.pt``. That entry point reads
-the checkpoint through the JAX package, so it runs only where JAX is
-installed; nothing else here imports it.
+``python -m avsum_torch.convert --params FILE.npz --out FILE.pt`` turns a
+JAX scorer's parameters, saved as numpy arrays under their ``/``-joined
+Flax paths (``visual_fc/Dense_0/kernel``, ...), into ``{"scorer":
+state_dict}`` for ``avsum_torch.cli summarize --weights FILE.pt``. The
+``.npz`` is written where JAX is installed (README.md gives the lines);
+this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -162,22 +163,29 @@ def scorer_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
+    """``{"a/b/c": array}`` -> ``{"a": {"b": {"c": array}}}``, the inverse
+    of ``flax.traverse_util.flatten_dict(tree, sep="/")``."""
+    tree: Dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="convert a JAX scorer checkpoint to a torch state_dict")
-    ap.add_argument("--checkpoint", required=True, help="JAX checkpoint dir")
+        description="convert a JAX scorer's parameters to a torch state_dict")
+    ap.add_argument("--params", required=True,
+                    help=".npz of the scorer's params under their /-joined "
+                         "Flax paths")
     ap.add_argument("--out", required=True, help="output .pt file")
-    ap.add_argument("--config", default=None, help="YAML config path")
-    ap.add_argument("--set", dest="overrides", action="append", default=[],
-                    metavar="KEY=VALUE")
     args = ap.parse_args(argv)
-    from avsum_tpu.cli.main import _load_scorer
-    from avsum_tpu.train.config import load_config
-
-    model, params = _load_scorer(load_config(args.config, args.overrides),
-                                 args.checkpoint)
-    if model is None:
-        raise SystemExit(f"no checkpoint in {args.checkpoint}")
+    with np.load(args.params) as npz:
+        params = unflatten({name: npz[name] for name in npz.files})
     torch.save({"scorer": scorer_from_flax(params)}, args.out)
     print(f"wrote {args.out}")
     return 0

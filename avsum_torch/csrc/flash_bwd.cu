@@ -26,36 +26,33 @@
 // output by the mask, so dO, and with it every gradient term from such a
 // row, is 0.
 //
-// What bounds it on an H100: 8 * S^2 * D flops per head (four S x S x D
-// products in each kernel, counting the recomputed scores) against
-// O(S * D) bytes, so arithmetic. The TPU grid walked its inner blocks in
+// What bounds it on an H100: arithmetic. B3 does 8 * S^2 * D flops per
+// head (four S x S x D products, counting the recomputed scores), B4
+// 6 * S^2 * D (three), against O(S * D) bytes: at [1, 1024, 4, 256], 16.8
+// MB of q, k, v, dO (5 us at 3.35 TB/s) against 8.6 and 6.4 GFLOP, which
+// in 3xTF32 (three TF32 products each) take at least 52 and 39 us at the
+// dense TF32 peak of 495 TFLOP/s. The TPU grid walked its inner blocks in
 // order, carrying dK/dV (or dQ) in VMEM scratch; here one block owns
 // (b, h, 32 rows) and loops over the 32-row tiles of the other side
 // itself, with its accumulators in registers.
 //
-// B3 runs its four products on the tensor cores, mma.sync m16n8k8 TF32 in
+// Both run every product on the tensor cores, mma.sync m16n8k8 TF32 in
 // the 3xTF32 split for float32-level accuracy (mma_tf32.cuh; see the
-// note above the kernel for its tiling). mma.sync rather than wgmma: a
-// wgmma takes 64 rows, so 64-key blocks (64 blocks at [1, 1024, 4, D] on
-// 132 SMs) or 64-query tiles, and its shared-memory B operands would need
-// split (big, small) planes of every streamed Q / dO tile, which at
+// notes above the kernels for their tilings). mma.sync rather than wgmma:
+// a wgmma takes 64 rows, so 64-row blocks (64 blocks at [1, 1024, 4, D]
+// on 132 SMs) or 64-row tiles, and its shared-memory B operands would
+// need split (big, small) planes of every streamed tile, which at
 // D = 256 do not fit beside the double buffers; mma.sync's fragments are
-// split in registers as they are loaded, and P^T and dS^T go through
-// shared memory in the layouts it takes. It reads q and dout with 16-byte
-// cp.async, so their (b, s, h) strides must be multiples of 4 floats and
-// their base addresses 16-byte aligned (the wrapper copies a tensor that
-// is not). Block shape:
-// 32 keys, so [1, 1024, 4, D] is 128 blocks, one wave on 132 SMs (a
-// 64-key block would leave half the SMs idle), and S = 7168 is 896. At
-// D = 256 its tiles are ~203 KB of shared memory, one block per SM; at
-// D = 128 ~107 KB, two.
-//
-// B4 is plain FP32 FMAs (8 warps x 4 rows each; lane i holds columns i,
-// i+32, ...). In the score phase each lane owns one row of the streamed
-// tile, whose shared-memory rows are padded by one float so the 32 lanes
-// hit 32 banks; the resident rows are read as float4 broadcasts. D = 256
-// makes its four 32 x D tiles ~128 KB of dynamic shared memory, so one
-// block runs per SM there.
+// split in registers as they are loaded, and P and dS go through shared
+// memory in the layouts the last products take. The streamed and the
+// resident tiles arrive by 16-byte cp.async into XOR-swizzled rows
+// (mma_tf32.cuh), so the (b, s, h) strides of q, k, v and dout must be
+// multiples of 4 floats and their base addresses 16-byte aligned (the
+// wrapper copies a tensor that is not). Block shape: 32 rows, so
+// [1, 1024, 4, D] is 128 blocks, one wave on 132 SMs (a 64-row block
+// would leave half the SMs idle), and S = 7168 is 896. At D = 256 their
+// tiles are ~203 KB of shared memory, one block per SM; at D = 128
+// ~107 KB, two.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,29 +64,7 @@ namespace {
 constexpr int kBlock = 32;  // rows a block owns
 constexpr int kTile = 32;   // rows of the other side per loop step
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kBlock / kWarps;  // owned rows per warp
 constexpr float kMaskBias = -1e30f;
-
-template <int D>
-constexpr size_t smem_floats() {
-  // two resident [kBlock][D] tiles, two streamed [kTile][D + 1] tiles,
-  // two [kBlock][kTile] score tiles, and two [kTile] row vectors
-  return 2 * (size_t)kBlock * D + 2 * (size_t)kTile * (D + 1) +
-         2 * (size_t)kBlock * kTile + 2 * (size_t)kTile;
-}
-
-// Copy rows [s0, s0 + kRowsTile) of a strided [S, D] head slice into
-// shared memory with row pitch `pitch`; rows past S become zeros.
-template <int D, int kRowsTile>
-__device__ __forceinline__ void load_tile(float* dst, int pitch,
-                                          const float* src, long row_stride,
-                                          int s0, int S) {
-  for (int i = threadIdx.x; i < kRowsTile * D; i += kThreads) {
-    const int r = i / D, d = i % D, s = s0 + r;
-    dst[r * pitch + d] = s < S ? src[s * row_stride + d] : 0.f;
-  }
-}
 
 __device__ __forceinline__ float key_bias(const float* mask, int b, int S,
                                           int key) {
@@ -121,26 +96,15 @@ struct DkvSmem {
       + 4 * (size_t)kTile;              // two stages of LSE, delta
 };
 
-__device__ __forceinline__ int swizzle(int r) { return (r & 6) ^ ((r & 1) << 2); }
-
-// Offset of element (r, c) of a swizzled [rows][D] tile.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((((c >> 2) ^ swizzle(r)) << 2) | (c & 3));
-}
-
 // cp.async rows [s0, s0 + 32) of a strided [S, D] head slice into a
-// swizzled tile; rows past S become zeros.
+// swizzled tile (mma_tf32.cuh); rows past S become zeros.
 template <int D>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src,
                                           long row_stride, int s0, int S) {
-  for (int i = threadIdx.x; i < kBlock * D / 4; i += kThreads) {
-    const int r = i / (D / 4), c = 4 * (i % (D / 4)), s = s0 + r;
-    const bool in = s < S;
-    tf32::cp_async16(dst + swz<D>(r, c), src + (in ? s * row_stride + c : 0),
-                     in ? 16 : 0);
-  }
+  tf32::copy_rows<D, kBlock, kThreads>(dst, src, row_stride, s0, S);
 }
+
+using tf32::swz;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 1)
@@ -223,30 +187,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* tq = sq + buf * kTile * D;
     const float* tdo = sdo + buf * kTile * D;
 
-    // products 1-2. Over each 16 columns d0 .. d0 + 15 of D, lane (g, t)
-    // loads the float4 at d0 + 4t of its A and B rows: k-step 0 takes
-    // columns d0 + 4t (k = t) and d0 + 4t + 1 (k = t + 4), k-step 1 the
-    // other two; A and B agree, so the sum is over all 16, one mma3.
+    // products 1-2, over all of D
     {
-      const float* bt = dp_warp ? tdo : tq;
       float acc[2][4] = {};
-#pragma unroll 4
-      for (int d0 = 0; d0 < D; d0 += 16) {
-        const int c = d0 + 4 * t;
-        const float4 lo = *reinterpret_cast<const float4*>(a_tile + swz<D>(mrow, c));
-        const float4 hi = *reinterpret_cast<const float4*>(a_tile + swz<D>(mrow + 8, c));
-        tf32::FragA fa[2];
-        fa[0].set(0, lo.x); fa[0].set(1, hi.x); fa[0].set(2, lo.y); fa[0].set(3, hi.y);
-        fa[1].set(0, lo.z); fa[1].set(1, hi.z); fa[1].set(2, lo.w); fa[1].set(3, hi.w);
-        tf32::FragB fb[2][2];
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const float4 x = *reinterpret_cast<const float4*>(bt + swz<D>(ncol + 8 * n + g, c));
-          fb[0][n].set(0, x.x); fb[0][n].set(1, x.y);
-          fb[1][n].set(0, x.z); fb[1][n].set(1, x.w);
-        }
-        tf32::mma3<2, 2>(acc, fa, fb);
-      }
+      tf32::rows_dot<D, D, 4>(acc, a_tile, mrow, dp_warp ? tdo : tq, ncol, 0);
       // c0..c3 of tile n: (key mrow, query 2t), (mrow, 2t + 1), (mrow + 8, ..)
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
@@ -325,9 +269,34 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-// B4: one block owns (b, h, queries [q0, q0 + 32)) and loops over key tiles.
+// B4, the mirror of B3: one block owns (b, h, queries [q0, q0 + 32)) and
+// loops over tiles of 32 keys, on the tensor cores (3xTF32). Per tile:
+//   products 1 and 2, S = Q K^T and dP = dO V^T over D, [32 queries x 32
+//   keys]: warps 0-3 compute S, warps 4-7 dP, each one 16-query m-tile x
+//   two 8-key n-tiles, with the same fragment loads as B3's. The S warps
+//   write P = exp(S * scale + bias - LSE) to shared memory (0 for keys
+//   past S), the dP warps dP - delta;
+//   product 3, dQ += dS K over the tile's 32 keys, with dS = P o (dP -
+//   delta) formed as the A fragment is loaded: warp w owns columns
+//   [w D / 8, (w + 1) D / 8) of dQ for all 32 queries, in registers (32 a
+//   thread at D = 256). Within each group of NT = D / 64 n-tiles a warp
+//   owns, n-tile i's column g is column NT g + i, so the B fragments of all
+//   NT n-tiles at one key are NT consecutive floats of a K row, one vector
+//   load; the swizzle keeps those loads on 32 banks.
+// Q and dO (and the rows' LSE and delta) stay resident; K and V tiles,
+// and the tile's key mask, are double-buffered: the next tile's 16-byte
+// cp.async copies are issued before this tile's products.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct DqSmem {
+  static constexpr int kPitch = kTile + 8;  // P, dP rows
+  static constexpr size_t kFloats =
+      6 * (size_t)kBlock * D            // Q, dO, and two stages of K, V
+      + 2 * (size_t)kBlock * kPitch     // P, dP - delta
+      + 2 * (size_t)kTile;              // two stages of the key mask
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ mask,  // [B, S] or null
@@ -336,112 +305,153 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int S, int H, long qsb, long qss, long qsh, long ksb,
                     long kss, long ksh, long vsb, long vss, long vsh,
                     long dsb, long dss, long dsh, float scale) {
-  constexpr int kCols = D / 32;
+  using Smem = DqSmem<D>;
+  constexpr int kPitch = Smem::kPitch;
+  constexpr int NT = D / 64;  // 8-column n-tiles of dQ per warp
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sq = smem;                        // [kBlock][D]  resident queries
-  float* sdo = sq + kBlock * D;            // [kBlock][D]  resident dO
-  float* sk = sdo + kBlock * D;            // [kTile][D + 1]
-  float* sv = sk + kTile * (D + 1);        // [kTile][D + 1]
-  float* sds = sv + kTile * (D + 1);       // [kBlock][kTile]
+  float* sq = reinterpret_cast<float*>(smem4);  // [kBlock][D] swizzled
+  float* sdo = sq + kBlock * D;                 // [kBlock][D]
+  float* sk = sdo + kBlock * D;                 // [2][kTile][D]
+  float* sv = sk + 2 * kTile * D;               // [2][kTile][D]
+  float* sp = sv + 2 * kTile * D;               // [kBlock][kPitch]  P
+  float* sdp = sp + kBlock * kPitch;            // [kBlock][kPitch]  dP - delta
+  float* smask = sdp + kBlock * kPitch;         // [2][kTile]  key mask > 0
 
   const int q0 = blockIdx.x * kBlock;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const float* kb = k + b * ksb + h * ksh;
   const float* vb = v + b * vsb + h * vsh;
-  load_tile<D, kBlock>(sq, D, q + b * qsb + h * qsh, qss, q0, S);
-  load_tile<D, kBlock>(sdo, D, dout + b * dsb + h * dsh, dss, q0, S);
 
-  float l[kRows], dl[kRows], acc[kRows][kCols];
+  auto copy_tile = [&](int k0, int buf) {
+    copy_rows<D>(sk + buf * kTile * D, kb, kss, k0, S);
+    copy_rows<D>(sv + buf * kTile * D, vb, vss, k0, S);
+    if (threadIdx.x < kTile) {
+      const int s = k0 + threadIdx.x;
+      float* dst = smask + buf * kTile + threadIdx.x;
+      if (mask == nullptr) {
+        *dst = 1.f;
+      } else {
+        tf32::cp_async4(dst, mask + (long)b * S + (s < S ? s : 0), s < S);
+      }
+    }
+  };
+  copy_rows<D>(sq, q + b * qsb + h * qsh, qss, q0, S);
+  copy_rows<D>(sdo, dout + b * dsb + h * dsh, dss, q0, S);
+  copy_tile(0, 0);
+  tf32::cp_async_commit();
+
+  // products 1-2: this warp's product, query m-tile and key n-tiles
+  const bool dp_warp = warp >= 4;
+  const int mrow = 16 * ((warp >> 1) & 1) + g;  // query rows mrow, mrow + 8
+  const int ncol = 16 * (warp & 1);             // keys ncol .. ncol + 15
+  const float* a_tile = dp_warp ? sdo : sq;
+  float row_stat[2];  // LSE (S warps) or delta (dP warps) of rows mrow, + 8
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int s = q0 + warp * kRows + r;
-    l[r] = s < S ? lse[((long)b * H + h) * S + s] : 0.f;
-    dl[r] = s < S ? delta[((long)b * H + h) * S + s] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int s = q0 + mrow + 8 * i;
+    row_stat[i] = s < S ? (dp_warp ? delta : lse)[((long)b * H + h) * S + s]
+                        : 0.f;
   }
+  // product 3: dQ columns [cb, cb + D / 8)
+  const int cb = warp * (D / 8);
+  float acc_q[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_q[m][n][e] = 0.f;
 
-  const float4* qrow4 = reinterpret_cast<const float4*>(sq + warp * kRows * D);
-  const float4* dorow4 = reinterpret_cast<const float4*>(sdo + warp * kRows * D);
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    __syncthreads();  // Q, dO loaded / the previous tile consumed
-    load_tile<D, kTile>(sk, D + 1, kb, kss, k0, S);
-    load_tile<D, kTile>(sv, D + 1, vb, vss, k0, S);
-    __syncthreads();
+  const int n_tiles = (S + kTile - 1) / kTile;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1, k0 = it * kTile;
+    tf32::cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < n_tiles) copy_tile(k0 + kTile, buf ^ 1);
+    tf32::cp_async_commit();
+    const float* tk = sk + buf * kTile * D;
+    const float* tv = sv + buf * kTile * D;
+    const float* tmask = smask + buf * kTile;
 
-    // scores and dP: lane = key, warp = kRows queries
-    float sc[kRows], dp[kRows];
+    // products 1-2, over all of D
+    {
+      float acc[2][4] = {};
+      tf32::rows_dot<D, D, 4>(acc, a_tile, mrow, dp_warp ? tv : tk, ncol, 0);
+      // c0..c3 of tile n: (query mrow, key 2t), (mrow, 2t + 1), (mrow + 8, ..)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) sc[r] = dp[r] = 0.f;
-    const float* krow = sk + lane * (D + 1);
-    const float* vrow = sv + lane * (D + 1);
-#pragma unroll 2
-    for (int d4 = 0; d4 < D / 4; ++d4) {
-      float kd[4], vd[4];
+      for (int n = 0; n < 2; ++n) {
+        const int kj = ncol + 8 * n + 2 * t;
+        float out[4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        kd[t] = krow[4 * d4 + t];
-        vd[t] = vrow[4 * d4 + t];
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qq = qrow4[r * (D / 4) + d4];
-        const float4 oo = dorow4[r * (D / 4) + d4];
-        sc[r] = fmaf(qq.x, kd[0], sc[r]);
-        sc[r] = fmaf(qq.y, kd[1], sc[r]);
-        sc[r] = fmaf(qq.z, kd[2], sc[r]);
-        sc[r] = fmaf(qq.w, kd[3], sc[r]);
-        dp[r] = fmaf(oo.x, vd[0], dp[r]);
-        dp[r] = fmaf(oo.y, vd[1], dp[r]);
-        dp[r] = fmaf(oo.z, vd[2], dp[r]);
-        dp[r] = fmaf(oo.w, vd[3], dp[r]);
-      }
-    }
-    const int key = k0 + lane;
-    const bool k_in = key < S;
-    const float bias = k_in ? key_bias(mask, b, S, key) : 0.f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float p = k_in ? expf(sc[r] * scale + bias - l[r]) : 0.f;
-      sds[(warp * kRows + r) * kTile + lane] = p * (dp[r] - dl[r]);
-    }
-    __syncwarp();
-
-    // dQ += dS K over this warp's queries
-    const float4* dsrow4 = reinterpret_cast<const float4*>(sds + warp * kRows * kTile);
-    for (int j4 = 0; j4 < kTile / 4; ++j4) {
-      float dsr[kRows][4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 dd = dsrow4[r * (kTile / 4) + j4];
-        dsr[r][0] = dd.x; dsr[r][1] = dd.y; dsr[r][2] = dd.z; dsr[r][3] = dd.w;
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int j = 4 * j4 + t;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const float kc = sk[j * (D + 1) + lane + 32 * c];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            acc[r][c] = fmaf(dsr[r][t], kc, acc[r][c]);
+        for (int e = 0; e < 4; ++e) {
+          const int kk = kj + (e & 1);
+          if (dp_warp) {
+            out[e] = acc[n][e] - row_stat[e >> 1];
+          } else {
+            const float bias = tmask[kk] > 0.f ? 0.f : kMaskBias;
+            out[e] = k0 + kk < S
+                ? expf(acc[n][e] * scale + bias - row_stat[e >> 1])
+                : 0.f;
+          }
         }
+        float* dst = dp_warp ? sdp : sp;
+        *reinterpret_cast<float2*>(dst + mrow * kPitch + kj) = make_float2(out[0], out[1]);
+        *reinterpret_cast<float2*>(dst + (mrow + 8) * kPitch + kj) = make_float2(out[2], out[3]);
+      }
+    }
+    __syncthreads();  // P and dP - delta are in shared memory
+
+    // product 3. K-step j covers keys 8j .. 8j + 7: k = t is key 8j + 2t
+    // and k = t + 4 is key 8j + 2t + 1, in A (a float2 of the P and dP
+    // rows) and in B (rows 8j + 2t, 8j + 2t + 1 of K) alike.
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      const int kj = 8 * j + 2 * t;
+      tf32::FragB fk[NT];
+      float lo[NT], hi[NT];
+      tf32::load_vec<NT>(lo, tk + swz<D>(kj, cb + NT * g));
+      tf32::load_vec<NT>(hi, tk + swz<D>(kj + 1, cb + NT * g));
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        fk[n].set(0, lo[n]);
+        fk[n].set(1, hi[n]);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r = 16 * m + g;
+        const float2 p_lo = *reinterpret_cast<const float2*>(sp + r * kPitch + kj);
+        const float2 p_hi = *reinterpret_cast<const float2*>(sp + (r + 8) * kPitch + kj);
+        const float2 d_lo = *reinterpret_cast<const float2*>(sdp + r * kPitch + kj);
+        const float2 d_hi = *reinterpret_cast<const float2*>(sdp + (r + 8) * kPitch + kj);
+        tf32::FragA fs;
+        fs.set(0, p_lo.x * d_lo.x); fs.set(1, p_hi.x * d_hi.x);
+        fs.set(2, p_lo.y * d_lo.y); fs.set(3, p_hi.y * d_hi.y);
+        tf32::mma3_row<NT>(acc_q[m], fs, fk);
       }
     }
   }
 
+  // c0..c3 of (m, n): (query 16m + g, column cb + NT (2t) + n), (.., cb +
+  // NT (2t + 1) + n), (query 16m + g + 8, ..): NT consecutive columns each
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int s = q0 + warp * kRows + r;
-    if (s >= S) continue;
-    const long row = (((long)b * S + s) * H + h) * D;
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dq[row + lane + 32 * c] = acc[r][c] * scale;
-  }
+    for (int i = 0; i < 2; ++i) {
+      const int s = q0 + 16 * m + g + 8 * i;
+      if (s >= S) continue;
+      float* row = dq + (((long)b * S + s) * H + h) * D + cb + 2 * NT * t;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x[NT];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) x[n] = acc_q[m][n][2 * i + e] * scale;
+        tf32::store_vec<NT>(row + NT * e, x);
+      }
+    }
 }
 
 struct Args {
@@ -468,7 +478,7 @@ int launch_dkv(const Args& a, float* dk, float* dv) {
 
 template <int D>
 int launch_dq(const Args& a, float* dq) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
+  const size_t smem = DqSmem<D>::kFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

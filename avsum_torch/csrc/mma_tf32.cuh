@@ -146,6 +146,91 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Swizzled [rows][D] float32 tiles, as the flash-attention kernels keep
+// them in shared memory: each row's 16-byte chunks are XOR-permuted by a
+// function of the row's low three bits, so that a warp's float4 loads of
+// one column chunk from eight rows (the fragment loads over D, rows_dot),
+// and its loads of one to four columns from each of the rows 2t or
+// 2t + 1, t < 4, at eight columns or column chunks g (the fragment loads
+// over the rows), hit 32 distinct banks. D >= 32.
+__device__ __forceinline__ int swizzle(int r) { return (r & 6) ^ ((r & 1) << 2); }
+
+// Offset of element (r, c) of a swizzled [rows][D] tile.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((((c >> 2) ^ swizzle(r)) << 2) | (c & 3));
+}
+
+// cp.async rows [s0, s0 + ROWS) of a strided [S, D] head slice (row
+// stride in floats, a multiple of 4, and a 16-byte aligned base) into a
+// swizzled tile, by all kThreads threads of the block; rows past S become
+// zeros.
+template <int D, int ROWS, int kThreads>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long row_stride, int s0, int S) {
+  for (int i = threadIdx.x; i < ROWS * D / 4; i += kThreads) {
+    const int r = i / (D / 4), c = 4 * (i % (D / 4)), s = s0 + r;
+    const bool in = s < S;
+    cp_async16(dst + swz<D>(r, c), src + (in ? s * row_stride + c : 0),
+               in ? 16 : 0);
+  }
+}
+
+// acc[n] += A rows (r, r + 8) . B rows (n0 + 8n + g), n = 0, 1, over the
+// SPAN columns from c0 (a multiple of 16) of two swizzled [rows][D]
+// tiles: one m-tile x two n-tiles of A B^T, as m16n8 C fragments. Over
+// each 16 columns d0 .. d0 + 15, lane (g, t) loads the float4 at d0 + 4t
+// of its A and B rows: k-step 0 takes columns d0 + 4t (k = t) and
+// d0 + 4t + 1 (k = t + 4), k-step 1 the other two; A and B agree, so the
+// sum is over all 16, one mma3.
+template <int D, int SPAN, int UNROLL>
+__device__ __forceinline__ void rows_dot(float (&acc)[2][4], const float* a,
+                                         int r, const float* b, int n0,
+                                         int c0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll (UNROLL)
+  for (int d0 = c0; d0 < c0 + SPAN; d0 += 16) {
+    const int c = d0 + 4 * t;
+    const float4 lo = *reinterpret_cast<const float4*>(a + swz<D>(r, c));
+    const float4 hi = *reinterpret_cast<const float4*>(a + swz<D>(r + 8, c));
+    FragA fa[2];
+    fa[0].set(0, lo.x); fa[0].set(1, hi.x); fa[0].set(2, lo.y); fa[0].set(3, hi.y);
+    fa[1].set(0, lo.z); fa[1].set(1, hi.z); fa[1].set(2, lo.w); fa[1].set(3, hi.w);
+    FragB fb[2][2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float4 x = *reinterpret_cast<const float4*>(b + swz<D>(n0 + 8 * n + g, c));
+      fb[0][n].set(0, x.x); fb[0][n].set(1, x.y);
+      fb[1][n].set(0, x.z); fb[1][n].set(1, x.w);
+    }
+    mma3<2, 2>(acc, fa, fb);
+  }
+}
+
+// N (2 or 4) consecutive floats from shared memory, 8 or 16 bytes aligned.
+template <int N>
+__device__ __forceinline__ void load_vec(float (&out)[N], const float* p) {
+  static_assert(N == 2 || N == 4, "load_vec takes 2 or 4 floats");
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x; out[1] = x.y;
+  }
+}
+
+// N consecutive floats to device memory, 8 or 16 bytes aligned.
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[N]) {
+  static_assert(N == 2 || N == 4, "store_vec takes 2 or 4 floats");
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
+}
+
 // wgmma: Hopper's warpgroup MMA, m64nNk8 .f32.tf32.tf32 with A from
 // registers. The four warps of a warpgroup (warps 4i .. 4i + 3) multiply
 // their 64 rows, warp w holding rows 16 (w % 4) .. + 15 as an m16n8k8 A

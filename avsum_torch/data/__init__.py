@@ -1,5 +1,6 @@
-"""Training examples from the feature cache (numpy)."""
+"""Training examples from the feature cache (numpy): the port's own copies
+of ``avsum_tpu/data/{cache,batching,splits,tvsum,summe}.py``."""
 
-from avsum_tpu.data.cache import FeatureCache
+from avsum_torch.data.cache import FeatureCache
 
 __all__ = ["FeatureCache"]

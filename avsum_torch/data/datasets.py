@@ -4,8 +4,8 @@
 
 Each shot's target is the mean of the per-frame annotation (TVSum user
 mean, SumMe gt_score) over its frame range, rescaled to [0, 1]. The
-cache, the parsers and the batching are the JAX package's own modules,
-which import no jax.
+cache, the parsers and the batching are the port's copies of the JAX
+package's numpy modules.
 """
 
 from __future__ import annotations
@@ -14,11 +14,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from avsum_torch.data.batching import VideoExample
+from avsum_torch.data.cache import FeatureCache
+from avsum_torch.data.summe import load_summe_dir
+from avsum_torch.data.tvsum import load_tvsum, tvsum_index
 from avsum_torch.temporal.align import frame_scores_to_shot_scores
-from avsum_tpu.data.batching import VideoExample
-from avsum_tpu.data.cache import FeatureCache
-from avsum_tpu.data.summe import load_summe_dir
-from avsum_tpu.data.tvsum import load_tvsum, tvsum_index
 
 
 def _attach_targets(example: VideoExample, frame_scores: np.ndarray,

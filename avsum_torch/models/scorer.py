@@ -32,7 +32,7 @@ from avsum_torch.models.temporal import (
     dropout,
     next_seed,
 )
-from avsum_tpu.train.config import ModelConfig
+from avsum_torch.train.config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -179,6 +179,7 @@ def flash_attention_fwd(
     version for CPU tensors."""
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v, mask)
+    q, k, v = map(_vec4, (q, k, v))
     _check(mask, ("q", q), ("k", k), ("v", v))
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), device=q.device, dtype=torch.float32)
@@ -215,9 +216,9 @@ def _bwd_args(q, k, v, do, mask, lse, delta):
 
 def _vec4(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its base address is 16-byte aligned and its
-    (b, s, h) strides are multiples of 4 floats, as B3's 16-byte copies
-    need (slices of the fused qkv projection are); a contiguous copy
-    otherwise."""
+    (b, s, h) strides are multiples of 4 floats, as the kernels' 16-byte
+    copies need (slices of the fused qkv projection are); a contiguous
+    copy otherwise."""
     if t.data_ptr() % 16 == 0 and all(
             st % 4 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
         return t
@@ -247,6 +248,7 @@ def flash_bwd_dq(q, k, v, do, mask, lse, delta):
     tensors."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, mask, lse, delta)
+    q, k, v, do = map(_vec4, (q, k, v, do))
     mask, lead, tail = _bwd_args(q, k, v, do, mask, lse, delta)
     dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):

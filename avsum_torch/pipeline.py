@@ -34,6 +34,8 @@ import numpy as np
 import torch
 
 from avsum_torch.audio.frontend import AudioFrontend
+from avsum_torch.io.video import audio_path_for, open_video
+from avsum_torch.io.wav import load_audio_mono_16k_ship
 from avsum_torch.summary.knapsack import select_summary
 from avsum_torch.temporal.shots import (
     ContentDetectorConfig,
@@ -41,10 +43,8 @@ from avsum_torch.temporal.shots import (
     cuts_from_scores,
     refined_content_scores,
 )
+from avsum_torch.train.config import Config
 from avsum_torch.vision.backbone import VisualFrontend
-from avsum_tpu.io.video import audio_path_for, open_video
-from avsum_tpu.io.wav import load_audio_mono_16k_ship
-from avsum_tpu.train.config import Config
 
 log = logging.getLogger("avsum_torch.pipeline")
 
@@ -109,7 +109,7 @@ class AVPipeline:
         silence = np.zeros(max(int(duration_s * sr), sr), np.float32)
         ext = os.path.splitext(video_path)[1].lower()
         if ext in (".mp4", ".mov", ".m4v"):
-            from avsum_tpu.io.mp4 import (
+            from avsum_torch.io.mp4 import (
                 Mp4NoAudioTrack,
                 Mp4UnsupportedCodec,
                 load_mp4_audio_mono_16k,
@@ -143,7 +143,7 @@ class AVPipeline:
     @staticmethod
     def _container_audio(video_path: str,
                          silence: Optional[np.ndarray] = None):
-        from avsum_tpu.io.ffaudio import (
+        from avsum_torch.io.ffaudio import (
             FFAudioError,
             FFNoAudioStream,
             ffmpeg_audio_available,

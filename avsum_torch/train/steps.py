@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from avsum_tpu.train.config import MeshShape, TrainConfig
+from avsum_torch.train.config import MeshShape, TrainConfig
 
 Batch = Dict[str, torch.Tensor]  # visual, audio, targets, mask
 

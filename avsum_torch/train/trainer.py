@@ -16,8 +16,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from avsum_torch.data.batching import pad_batch
 from avsum_torch.summary.metrics import evaluate_scores
 from avsum_torch.train.checkpoint import CheckpointManager
+from avsum_torch.train.config import Config
 from avsum_torch.train.steps import (
     TrainState,
     apply_matmul_precision,
@@ -28,8 +30,6 @@ from avsum_torch.train.steps import (
     make_train_step,
 )
 from avsum_torch.utils.logging import JsonlLogger
-from avsum_tpu.data.batching import pad_batch
-from avsum_tpu.train.config import Config
 
 log = logging.getLogger("avsum_torch.train")
 
@@ -38,7 +38,7 @@ class Trainer:
     """Drives (model, config) over padded numpy batches on ``device``.
 
     ``batches_fn(epoch)`` yields dicts with visual [B,S,Dv], audio
-    [B,S,Da], targets [B,S] and mask [B,S] (``avsum_tpu.data.batching``).
+    [B,S,Da], targets [B,S] and mask [B,S] (``avsum_torch.data.batching``).
     """
 
     def __init__(self, model: nn.Module, config: Config,

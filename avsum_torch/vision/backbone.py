@@ -19,9 +19,9 @@ from torch import nn
 
 from avsum_torch.init import fast_init_
 from avsum_torch.ops.color import yuv420_to_rgb
+from avsum_torch.train.config import VisualFeatConfig
 from avsum_torch.vision.inception import InceptionV3
 from avsum_torch.vision.resnet import ResNet50
-from avsum_tpu.train.config import VisualFeatConfig
 
 IMAGENET_MEAN = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float32)
 IMAGENET_STD = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float32)

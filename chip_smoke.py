@@ -23,15 +23,19 @@ raising on failure:
    finite, the checkpoint written and the resumed run start at epoch 2;
 6. each kernel against its plain PyTorch version on the card, float32
    with TF32 off, on fixed cases and at the shapes the runs gave it (K1
-   also at 64 mel bands and on a quiet waveform; B3 also at S = 7168),
-   with CUDA-event times of both at those shapes, taken in turns over 5
-   rounds (median, min-max); the flash backward also against autograd of
-   the plain attention;
+   also at 64 mel bands and on a quiet waveform; K2, B3 and B4 also at
+   the hour step's S = 7168), with CUDA-event times of both at those
+   shapes, taken in turns over 5 rounds (median, min-max), beside each
+   kernel's bound (:func:`bound`) and the time of the one PyTorch call
+   that computes the same function (SDPA's efficient attention for K2,
+   its backward against B3 + B4; none for K1); the flash backward also
+   against autograd of the plain attention;
 7. one hour-scale train step on the card against the same step on the
    CPU (same parameters and batch, dropout 0): loss, every gradient and
    the parameters after 3 steps;
 8. one train step at S = 7168 with remat (``scripts/bench_train_hour.py``'s
-   shape): its time and peak device memory.
+   shape): its time, peak device memory, and the device time of two
+   steps by kernel (K2, B3, B4, cuBLAS, the rest; torch.profiler).
 
 Launch counts are reset just before each run of phases 3-5 and read just
 after it; the comparisons of phases 6-8 are not counted.
@@ -62,6 +66,9 @@ GRAD_TOL = 1e-4  # card vs CPU gradients, relative to each tensor's max |g|
 PARAM_TOL = 1e-5  # card vs CPU parameters after 3 train steps
 HOUR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "hour_scale.yaml")
+# NVIDIA H100 SXM, dense (data sheet): TF32 tensor-core rate, HBM3 rate
+TF32_FLOPS = 495e12
+HBM_BYTES = 3.35e12
 
 
 def card_line() -> str:
@@ -102,6 +109,61 @@ def compare_ms(fns: dict, rounds: int = 5, iters: int = 20) -> dict:
 
 def fmt_ms(t: tuple) -> str:
     return f"{t[0]:.3f} ms ({t[1]:.3f}-{t[2]:.3f})"
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for work of ``flops`` float32
+    flops (counted once) that must move ``nbytes`` (each input read once,
+    each output written once): the larger of the flops in 3xTF32, three
+    TF32 products each (one pass misses the kernels' float32 tolerances),
+    at the dense TF32 peak, and the bytes at the HBM rate."""
+    ops_ms = 3 * flops / TF32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def attention_bound(b: int, s: int, h: int, d: int, products: int,
+                    in_rows: int, out_rows: int) -> dict:
+    """Bound of a flash kernel at [b, s, h, d]: ``products`` S x S x D
+    products per head; ``in_rows`` and ``out_rows`` [B, S, H, D] tensors
+    read and written, plus the [B, S] mask and two [B, H, S] row vectors."""
+    flops = 2 * products * b * h * s * s * d
+    nbytes = 4 * ((in_rows + out_rows) * b * s * h * d + b * s + 2 * b * h * s)
+    return bound(flops, nbytes)
+
+
+def melspec_bound(samples: int, n_mels: int, n_fft: int = 400,
+                  hop: int = 200) -> dict:
+    """K1's bound: the windowed DFT (cos and sin of n_fft / 2 + 1 bins) and
+    the mel product of every frame; the waveform read, mel and log-mel
+    written."""
+    frames, bins = 1 + samples // hop, n_fft // 2 + 1
+    flops = 2 * frames * bins * (2 * n_fft + n_mels)
+    return bound(flops, 4 * (samples + 2 * frames * n_mels))
+
+
+def sdpa_inputs(q, k, v, mask, requires_grad: bool = False):
+    """[B, H, S, D] transposes of q, k, v (leaves when ``requires_grad``)
+    and the key bias as a [B, 1, 1, S] float mask, for the library call."""
+    import torch
+
+    from avsum_torch.ops.attention import NEG_INF
+
+    qt, kt, vt = (x.detach().clone().transpose(1, 2).requires_grad_(
+        requires_grad) for x in (q, k, v))
+    bias = torch.where(mask.bool(), 0.0, NEG_INF)[:, None, None, :]
+    return qt, kt, vt, bias
+
+
+def sdpa(qt, kt, vt, bias):
+    """The one PyTorch call that computes K2's function, pinned to the
+    float32 memory-efficient backend; the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
 
 
 def phase_build() -> dict:
@@ -178,7 +240,12 @@ def check_k1(path_samples: list) -> dict:
                       f"kernel {fmt_ms(t['kernel'])}, plain "
                       f"{fmt_ms(t['plain'])}")
                 if n_mels == 128:
-                    timing = {"ms": t["kernel"][0], "plain_ms": t["plain"][0]}
+                    # no one PyTorch call computes the fused log-mel
+                    timing = {"ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                              **melspec_bound(x.numel(), n_mels),
+                              "library_ms": None}
+    print(f"K1 bound at {max(path_samples)} samples: {timing['bound_ms']:.4f} "
+          f"ms ({timing['bound_by']}); library call: none")
     return {"max_abs_err": worst, **timing}
 
 
@@ -200,6 +267,9 @@ def _flash_case(b: int, s: int, d: int, seed: int):
 
 
 def check_k2(path_seq: int) -> dict:
+    """K2 against its plain version on fixed cases and at the timed
+    shapes; times per launch of K2, its plain version and the library call
+    at the path's [1, S, 4, 256] and the hour step's [1, 7168, 4, D]."""
     import torch
 
     from avsum_torch.ops.attention import (
@@ -210,8 +280,9 @@ def check_k2(path_seq: int) -> dict:
 
     worst = 0.0
     for d in (128, 256):
-        for s in sorted({512, 544, 1000, path_seq}):
-            qkv, mask, _ = _flash_case(2, s, d, seed=s + d)
+        for b, s in sorted({(2, 40), (1, 544), (2, 512), (2, 544), (1, 1024),
+                            (2, 1000), (1, path_seq), (2, path_seq)}):
+            qkv, mask, _ = _flash_case(b, s, d, seed=s + d)
             q, k, v = qkv.unbind(2)
             out, lse = flash_attention_fwd(q, k, v, mask)
             ref, ref_lse = attention_fwd_plain(q, k, v, mask)
@@ -220,15 +291,41 @@ def check_k2(path_seq: int) -> dict:
             torch.testing.assert_close(lse, ref_lse, **K2_TOL)
             err = (out - ref).abs().max().item()
             worst = max(worst, err)
-            print(f"K2 D={d} S={s}: max|dout| {err:.3e}")
-    qkv, mask, _ = _flash_case(1, path_seq, 256, seed=7)
-    q, k, v = qkv.unbind(2)
-    t = compare_ms({"kernel": lambda: flash_attention_fwd(q, k, v, mask),
-                    "plain": lambda: attention_plain(q, k, v, mask)})
-    print(f"K2 at the path's [1, {path_seq}, 4, 256]: kernel "
-          f"{fmt_ms(t['kernel'])}, plain {fmt_ms(t['plain'])}")
-    return {"max_abs_err": worst, "ms": t["kernel"][0],
-            "plain_ms": t["plain"][0]}
+            print(f"K2 D={d} [{b}, {s}]: max|dout| {err:.3e}")
+    result = {}
+    for s, d, iters in ((path_seq, 256, 20), (7168, 256, 5), (7168, 128, 5)):
+        qkv, mask, _ = _flash_case(1, s, d, seed=7)
+        q, k, v = qkv.unbind(2)
+        out, lse = flash_attention_fwd(q, k, v, mask)
+        ref, ref_lse = attention_fwd_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, **K2_TOL)
+        torch.testing.assert_close(lse, ref_lse, **K2_TOL)
+        worst = max(worst, (out - ref).abs().max().item())
+        del out, lse, ref, ref_lse
+        fns = {"kernel": lambda: flash_attention_fwd(q, k, v, mask),
+               "plain": lambda: attention_plain(q, k, v, mask)}
+        lib = sdpa_inputs(q, k, v, mask)
+        try:
+            lib_err = (sdpa(*lib).transpose(1, 2)
+                       - attention_plain(q, k, v, mask)).abs().max().item()
+            fns["library"] = lambda: sdpa(*lib)
+            lib_note = f"max|d| vs plain {lib_err:.3e}"
+        except RuntimeError as e:
+            lib_note = f"no fused backend: {str(e).splitlines()[0]}"
+        t = compare_ms(fns, iters=iters)
+        bnd = attention_bound(1, s, 4, d, products=2, in_rows=3, out_rows=1)
+        library = fmt_ms(t["library"]) if "library" in t else "none"
+        print(f"K2 at [1, {s}, 4, {d}]: kernel {fmt_ms(t['kernel'])}, plain "
+              f"{fmt_ms(t['plain'])}, library (SDPA, efficient attention) "
+              f"{library} ({lib_note}), bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']})")
+        if not result:
+            result = {"ms": t["kernel"][0], "plain_ms": t["plain"][0], **bnd,
+                      "library_ms": t["library"][0] if "library" in t
+                      else None}
+        del qkv, q, k, v, lib
+    return {"max_abs_err": worst, **result}
 
 
 def _grads(fn, qkv, mask, cot):
@@ -281,20 +378,33 @@ def check_b34() -> tuple:
     for d in (256, 128):
         qkv, mask, cot = _flash_case(1, 1024, d, seed=d)
         args = _bwd_inputs(qkv, mask, cot)
-        t = compare_ms({
+        fns = {
             "dkv": lambda: att.flash_bwd_dkv(*args),
             "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args),
             "dq": lambda: att.flash_bwd_dq(*args),
             "dq_plain": lambda: att.flash_bwd_dq_plain(*args),
             "route": lambda: _grads(att.flash_attention, qkv, mask, cot),
             "route_plain": lambda: _grads(att.attention_plain, qkv, mask,
-                                          cot)})
+                                          cot)}
+        lib_note, library = _library_backward(qkv, mask, cot)
+        if library is not None:
+            fns["library"] = library
+        t = compare_ms(fns)
+        b3 = attention_bound(1, 1024, 4, d, products=4, in_rows=4,
+                             out_rows=2)
+        b4 = attention_bound(1, 1024, 4, d, products=3, in_rows=4,
+                             out_rows=1)
+        lib = (f"{fmt_ms(t['library'])} against B3 + B4 "
+               f"{t['dkv'][0] + t['dq'][0]:.3f} ms" if library else "none")
         print(f"B3/B4 at [1, 1024, 4, {d}]: B3 {fmt_ms(t['dkv'])}, plain "
-              f"{fmt_ms(t['dkv_plain'])}; B4 {fmt_ms(t['dq'])}, plain "
-              f"{fmt_ms(t['dq_plain'])}; forward+backward, kernel route "
-              f"{fmt_ms(t['route'])}, plain route {fmt_ms(t['route_plain'])}")
-        timing.setdefault(d, {k: v[0] for k, v in t.items()})
-    for d in (256, 128):  # the hour step's shapes, one B3 launch each
+              f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms; B4 "
+              f"{fmt_ms(t['dq'])}, plain {fmt_ms(t['dq_plain'])}, bound "
+              f"{b4['bound_ms']:.4f} ms; forward+backward, kernel route "
+              f"{fmt_ms(t['route'])}, plain route {fmt_ms(t['route_plain'])}; "
+              f"library (SDPA efficient-attention backward, dq dk dv) {lib} "
+              f"({lib_note})")
+        timing.setdefault(d, ({k: v[0] for k, v in t.items()}, b3, b4))
+    for d in (256, 128):  # the hour step's shapes, one launch each
         qkv, mask, cot = _flash_case(1, 7168, d, seed=d)
         mask.fill_(1.0)
         args = _bwd_inputs(qkv, mask, cot)
@@ -304,16 +414,55 @@ def check_b34() -> tuple:
         torch.testing.assert_close(dk, pk, **B34_TOL)
         torch.testing.assert_close(dv, pv, **B34_TOL)
         del dk, dv, pk, pv
+        dq, pq = att.flash_bwd_dq(*args), att.flash_bwd_dq_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dq, pq, **B34_TOL)
+        del dq, pq
         t = compare_ms({"dkv": lambda: att.flash_bwd_dkv(*args),
-                        "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args)},
+                        "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args),
+                        "dq": lambda: att.flash_bwd_dq(*args),
+                        "dq_plain": lambda: att.flash_bwd_dq_plain(*args)},
                        iters=5)
-        print(f"B3 at [1, 7168, 4, {d}]: kernel {fmt_ms(t['dkv'])}, plain "
-              f"{fmt_ms(t['dkv_plain'])}")
-    t = timing[256]
+        b3 = attention_bound(1, 7168, 4, d, products=4, in_rows=4,
+                             out_rows=2)
+        b4 = attention_bound(1, 7168, 4, d, products=3, in_rows=4,
+                             out_rows=1)
+        print(f"B3/B4 at [1, 7168, 4, {d}]: B3 {fmt_ms(t['dkv'])}, plain "
+              f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms; B4 "
+              f"{fmt_ms(t['dq'])}, plain {fmt_ms(t['dq_plain'])}, bound "
+              f"{b4['bound_ms']:.4f} ms")
+    t, b3, b4 = timing[256]
+    library = t.get("library")
     return ({"max_abs_err": worst["dkv"], "ms": t["dkv"],
-             "plain_ms": t["dkv_plain"]},
+             "plain_ms": t["dkv_plain"], **b3, "library_ms": library},
             {"max_abs_err": worst["dq"], "ms": t["dq"],
-             "plain_ms": t["dq_plain"]})
+             "plain_ms": t["dq_plain"], **b4, "library_ms": library})
+
+
+def _library_backward(qkv, mask, cot):
+    """-> (note, fn): fn times the backward of the library call (SDPA's
+    efficient attention: dq, dk and dv in one backward) on the same
+    inputs, after checking its gradients against the plain attention's;
+    (message, None) where the backend refuses the inputs."""
+    import torch
+
+    from avsum_torch.ops import attention as att
+
+    qt, kt, vt, bias = sdpa_inputs(*qkv.unbind(2), mask, requires_grad=True)
+    try:
+        out = sdpa(qt, kt, vt, bias)
+    except RuntimeError as e:
+        return f"no fused backend: {str(e).splitlines()[0]}", None
+    cot_t = cot.transpose(1, 2)
+    want = _grads(att.attention_plain, qkv, mask, cot)
+
+    def backward():
+        return torch.autograd.grad(out, (qt, kt, vt), cot_t,
+                                   retain_graph=True)
+
+    err = max((a.transpose(1, 2) - b).abs().max().item()
+              for a, b in zip(backward(), want))
+    return f"max|d grad| vs autograd of plain {err:.3e}", backward
 
 
 def _write_feature_cache(cache_dir: str, n: int, seed: int) -> None:
@@ -487,6 +636,45 @@ def hour_step() -> None:
           f"device memory {peak:.2f} GiB")
     if not np.isfinite(loss):
         raise AssertionError(f"hour step loss {loss}")
+    profile_step(lambda: float(step(state, batch)[1]["loss"]), steps=2)
+
+
+# kernel-name fragments -> the split of a profiled step
+KERNEL_GROUPS = (("K2", "flash_fwd_kernel"), ("B3", "flash_bwd_dkv_kernel"),
+                 ("B4", "flash_bwd_dq_kernel"), ("cuBLAS", "gemm"))
+
+
+def profile_step(run_step, steps: int) -> None:
+    """Device time of ``steps`` train steps by kernel group
+    (torch.profiler), per step: K2, B3, B4, cuBLAS GEMMs and the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    split = {name: [0.0, 0] for name, _ in KERNEL_GROUPS + (("other", ""),)}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or evt.self_device_time_total <= 0:
+            continue
+        name = evt.key.lower()
+        group = next((g for g, frag in KERNEL_GROUPS if frag.lower() in name),
+                     "other")
+        split[group][0] += evt.self_device_time_total / 1e3 / steps
+        split[group][1] += evt.count / steps
+    busy = sum(ms for ms, _ in split.values())
+    print("hour step profile, per step (device ms, launches): "
+          + ", ".join(f"{g} {ms:.2f} ({n:g})" for g, (ms, n) in split.items())
+          + f"; device busy {busy:.2f} of {wall:.1f} ms wall (profiled)")
+    if busy <= 0:
+        print("hour step profile: the profiler saw no device time")
 
 
 def _video(stem: str, n_scenes: int, height: int, width: int,

@@ -15,13 +15,14 @@ from avsum_tpu.audio.frontend import AudioFrontend as JaxAudioFrontend
 from avsum_tpu.audio.vggish import VGGish as JaxVGGish
 from avsum_tpu.audio.vggish import vggish_log_mel_patches as jax_patches
 from avsum_tpu.ops import spectral as jsp
-from avsum_tpu.train.config import AudioFeatConfig
+from avsum_tpu.train.config import AudioFeatConfig as JaxAudioFeatConfig
 from avsum_tpu.vision.backbone import fast_init
 from avsum_torch.audio import frontend as frontend_mod
 from avsum_torch.audio.frontend import AudioFrontend
 from avsum_torch.audio.vggish import VGGish, vggish_log_mel_patches
 from avsum_torch.convert import vggish_from_flax
 from avsum_torch.ops import spectral as tsp
+from avsum_torch.train.config import AudioFeatConfig
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -98,13 +99,14 @@ def test_shot_features_match_jax(vggish_params, dtype):
         wave = np.round(wave * 32767).astype(np.int16)
     bounds = np.array([[0, 9000], [9000, 9100], [9100, 30000],
                        [30000, 48077], [47000, 60000]], np.float64)
-    cfg = AudioFeatConfig()
     with jax.default_matmul_precision("highest"):
-        ref = np.asarray(JaxAudioFrontend(cfg, vggish_params, use_pallas=False)
+        ref = np.asarray(JaxAudioFrontend(JaxAudioFeatConfig(), vggish_params,
+                                          use_pallas=False)
                          .shot_features(wave, bounds))
     vggish = VGGish()
     vggish.load_state_dict(vggish_from_flax(vggish_params))
-    got = AudioFrontend(cfg, vggish, "cpu").shot_features(wave, bounds)
+    got = AudioFrontend(AudioFeatConfig(), vggish, "cpu").shot_features(
+        wave, bounds)
     assert got.shape == (5, 296)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
@@ -122,10 +124,12 @@ def test_use_pallas_false_keeps_the_kernel_off(monkeypatch, vggish_params,
     wave = _wave(2 * 16000 + 301, seed=12)
     bounds = np.array([[0, 12000], [12000, 20000], [20000, 32301]],
                       np.float64)
-    cfg = AudioFeatConfig(use_pallas=False if via == "config" else None)
+    flag = False if via == "config" else None
+    cfg = AudioFeatConfig(use_pallas=flag)
     kwargs = {"use_pallas": False} if via == "argument" else {}
     with jax.default_matmul_precision("highest"):
-        ref = np.asarray(JaxAudioFrontend(cfg, vggish_params, use_pallas=False)
+        ref = np.asarray(JaxAudioFrontend(JaxAudioFeatConfig(use_pallas=flag),
+                                          vggish_params, use_pallas=False)
                          .shot_features(wave, bounds))
     vggish = VGGish()
     vggish.load_state_dict(vggish_from_flax(vggish_params))

@@ -23,7 +23,7 @@ from avsum_tpu.ops.attention import reference_attention
 from avsum_torch.models import attention as mha
 from avsum_torch.models.scorer import AVScorer
 from avsum_torch.ops.attention import FlashAttention, flash_attention
-from avsum_tpu.train.config import ModelConfig
+from avsum_torch.train.config import ModelConfig
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 VALUE_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -5,11 +5,12 @@ originals, which import jax at module top."""
 import numpy as np
 import pytest
 
-from avsum_tpu.io.native import NativeY4MReader, native_available
-from avsum_tpu.io.synthetic import make_scene_video
-from avsum_tpu.io.y4m import write_y4m
+from avsum_tpu.io.native import NativeY4MReader as JaxNativeY4MReader
 from avsum_tpu.summary import knapsack as jks
 from avsum_tpu.temporal import shots as jshots
+from avsum_torch.io.native import NativeY4MReader, native_available
+from avsum_torch.io.synthetic import make_scene_video
+from avsum_torch.io.y4m import write_y4m
 from avsum_torch.summary import knapsack as tks
 from avsum_torch.temporal import shots as tshots
 
@@ -35,14 +36,15 @@ def test_refined_content_scores_match(tmp_path):
                                    scene_len_frames=(20, 40))
     path = str(tmp_path / "r.y4m")
     write_y4m(path, video, fps=30.0)
-    reader = NativeY4MReader(path)
+    reader, jax_reader = NativeY4MReader(path), JaxNativeY4MReader(path)
     try:
         for scale in (1, 2):
             np.testing.assert_array_equal(
                 tshots.refined_content_scores(reader, scale),
-                jshots.refined_content_scores(reader, scale))
+                jshots.refined_content_scores(jax_reader, scale))
     finally:
         reader.close()
+        jax_reader.close()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

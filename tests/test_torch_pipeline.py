@@ -3,8 +3,8 @@
 (tiny backbone, VGGish and a hidden-64 BiLSTM scorer, all float32,
 converted from JAX). Boundaries and segments must be equal; features and
 scores agree within 1e-4. Also: the summarize slice and the train CLI
-run with jax and flax unimportable, and the CLI prints the JAX CLI's
-JSON keys."""
+run with ``avsum_tpu``, jax, flax and optax unimportable, and the CLI
+prints the JAX CLI's JSON keys."""
 
 import json
 import os
@@ -17,11 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from avsum_tpu.io.native import native_available
-from avsum_tpu.io.synthetic import write_scene_video
 from avsum_tpu.models import make_model as jax_make_model
 from avsum_tpu.pipeline import AVPipeline as JaxPipeline
-from avsum_tpu.train.config import load_config
+from avsum_tpu.train.config import load_config as jax_load_config
 from avsum_torch.audio.frontend import AudioFrontend
 from avsum_torch.audio.vggish import VGGish
 from avsum_torch.convert import (
@@ -29,8 +27,11 @@ from avsum_torch.convert import (
     tiny_backbone_from_flax,
     vggish_from_flax,
 )
+from avsum_torch.io.native import native_available
+from avsum_torch.io.synthetic import write_scene_video
 from avsum_torch.models.scorer import make_model
 from avsum_torch.pipeline import AVPipeline
+from avsum_torch.train.config import load_config
 from avsum_torch.vision.backbone import VisualFrontend, make_backbone
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,13 +52,14 @@ def video(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def pipelines():
-    cfg = load_config(overrides=SLICE)
-    jax_pipe = JaxPipeline(cfg)
-    jax_model = jax_make_model(cfg.model)
+    jcfg = jax_load_config(overrides=SLICE)
+    jax_pipe = JaxPipeline(jcfg)
+    jax_model = jax_make_model(jcfg.model)
     with jax.default_matmul_precision("highest"):
         params = jax_model.init(
-            jax.random.PRNGKey(0), jnp.zeros((1, 8, cfg.model.visual_dim)),
-            jnp.zeros((1, 8, cfg.model.audio_dim)), jnp.ones((1, 8)))["params"]
+            jax.random.PRNGKey(0), jnp.zeros((1, 8, jcfg.model.visual_dim)),
+            jnp.zeros((1, 8, jcfg.model.audio_dim)), jnp.ones((1, 8)))["params"]
+    cfg = load_config(overrides=SLICE)
     backbone = make_backbone(
         cfg.visual, state_dict=tiny_backbone_from_flax(jax_pipe.visual.variables))
     vggish = VGGish()
@@ -96,17 +98,24 @@ def test_summarize_matches_jax(video, pipelines):
         "audio_pool", "score", "select"}
 
 
-NO_JAX = """
+# the port alone: the JAX package and JAX's libraries cannot be imported
+BLOCK = """
 import json, sys
-sys.modules["jax"] = sys.modules["flax"] = None
-from avsum_tpu.io.synthetic import write_scene_video
-from avsum_tpu.train.config import load_config
+for name in ("avsum_tpu", "jax", "flax", "optax"):
+    sys.modules[name] = None
+"""
+NOT_LOADED = """
+assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("avsum_tpu", "jax", "flax", "optax")]
+"""
+NO_JAX = BLOCK + """
 from avsum_torch.cli.main import build_pipeline, summary_json
+from avsum_torch.io import write_scene_video
+from avsum_torch.train.config import load_config
 write_scene_video(sys.argv[1], n_scenes=4, seed=5, height=72, width=96)
 cfg = load_config(overrides=sys.argv[2:])
 pipe, model = build_pipeline(cfg, "cpu", seed=1)
 out = summary_json(pipe.summarize(sys.argv[1] + ".y4m", model))
-assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "flax")]
+""" + NOT_LOADED + """
 print(json.dumps(out))
 """
 
@@ -123,18 +132,19 @@ def test_slice_runs_without_jax(tmp_path):
     assert all(0.0 <= s <= 1.0 for s in out["shot_scores"])
 
 
-NO_JAX_TRAIN = """
-import json, sys
-sys.modules["jax"] = sys.modules["flax"] = None
-from avsum_tpu.data.cache import FeatureCache
-from avsum_tpu.data.synthetic import make_synthetic_videos
+NO_JAX_TRAIN = BLOCK + """
+import numpy as np
 from avsum_torch.cli.main import main
+from avsum_torch.data import FeatureCache
 tmp = sys.argv[1]
 cache = FeatureCache(tmp + "/cache")
-for ex in make_synthetic_videos(3, min_shots=6, max_shots=12, visual_dim=16,
-                                audio_dim=8, seed=2):
-    cache.put(ex.video_id, ex.visual, ex.audio, ex.shot_boundaries, ex.fps,
-              ex.n_frames)
+rng = np.random.default_rng(2)
+for i, s in enumerate((6, 9, 12)):
+    ends = np.cumsum(rng.integers(20, 60, s))
+    bounds = np.stack([np.concatenate([[0], ends[:-1]]), ends], 1)
+    cache.put(f"v{i}", rng.standard_normal((s, 16), np.float32),
+              rng.standard_normal((s, 8), np.float32), bounds, 30.0,
+              int(ends[-1]))
 sets = ["data.dataset=synthetic", "data.cache_dir=" + tmp + "/cache",
         "data.max_shots=16", "data.batch_videos=2", "model.visual_dim=16",
         "model.audio_dim=8", "model.hidden_dim=16", "model.num_heads=2",
@@ -143,7 +153,7 @@ sets = ["data.dataset=synthetic", "data.cache_dir=" + tmp + "/cache",
         "train.log_path=" + tmp + "/log.jsonl"]
 assert main(["train", "--device", "cpu",
              *[a for s in sets for a in ("--set", s)]]) == 0
-assert not [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "flax")]
+""" + NOT_LOADED + """
 print(open(tmp + "/log.jsonl").read().strip().splitlines()[-1])
 """
 

@@ -16,7 +16,7 @@ from avsum_tpu.models import make_model as jax_make_model
 from avsum_tpu.models.temporal import AttentionBlock as JaxBlock
 from avsum_tpu.models.temporal import AttentionEncoder as JaxEncoder
 from avsum_tpu.models.temporal import sinusoidal_positions as jax_positions
-from avsum_tpu.train.config import ModelConfig
+from avsum_tpu.train.config import ModelConfig as JaxModelConfig
 from avsum_torch.convert import (
     attention_block_from_flax,
     attention_encoder_from_flax,
@@ -28,6 +28,7 @@ from avsum_torch.models.temporal import (
     AttentionEncoder,
     sinusoidal_positions,
 )
+from avsum_torch.train.config import ModelConfig
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -113,22 +114,22 @@ def test_attention_encoder_matches_flax(remat, s):
 
 @pytest.mark.parametrize("s", [40, 520])
 def test_attention_scorer_matches_jax(s):
-    cfg = ModelConfig(hidden_dim=32, num_heads=2, visual_dim=48,
-                      audio_dim=24, scorer_hidden=16,
-                      temporal_encoder="attention")
+    fields = dict(hidden_dim=32, num_heads=2, visual_dim=48, audio_dim=24,
+                  scorer_hidden=16, temporal_encoder="attention")
     rng = np.random.default_rng(s)
     visual = rng.standard_normal((2, s, 48)).astype(np.float32)
     audio = rng.standard_normal((2, s, 24)).astype(np.float32)
     mask = np.ones((2, s), np.float32)
     mask[0, s - 3:] = 0.0
     mask[1, s // 2:] = 0.0
-    jm = jax_make_model(cfg)
+    jm = jax_make_model(JaxModelConfig(**fields))
     with jax.default_matmul_precision("highest"):
         params = jm.init(jax.random.PRNGKey(3), visual[:, :8], audio[:, :8],
                          mask[:, :8])["params"]
         ref = np.asarray(jax.jit(jm.apply)({"params": params}, visual, audio,
                                            mask))
-    model = make_model(cfg, state_dict=scorer_from_flax(params))
+    model = make_model(ModelConfig(**fields),
+                       state_dict=scorer_from_flax(params))
     with torch.inference_mode():
         got = model(*(torch.from_numpy(a) for a in (visual, audio, mask)))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)

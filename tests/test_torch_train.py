@@ -24,23 +24,25 @@ import optax
 import pytest
 import torch
 
-from avsum_tpu.data.batching import batch_iterator, pad_batch
-from avsum_tpu.data.cache import FeatureCache
 from avsum_tpu.data.synthetic import make_synthetic_videos
-from avsum_tpu.io.native import native_available
-from avsum_tpu.io.synthetic import write_scene_video
 from avsum_tpu.models import make_model as jax_make_model
 from avsum_tpu.train import steps as jax_steps
-from avsum_tpu.train.config import (
+from avsum_tpu.train.config import ModelConfig as JaxModelConfig
+from avsum_tpu.train.config import TrainConfig as JaxTrainConfig
+from avsum_torch.convert import scorer_from_flax
+from avsum_torch.data.batching import batch_iterator, pad_batch
+from avsum_torch.data.cache import FeatureCache
+from avsum_torch.io.native import native_available
+from avsum_torch.io.synthetic import write_scene_video
+from avsum_torch.models.scorer import make_model
+from avsum_torch.train import steps
+from avsum_torch.train.checkpoint import CheckpointManager
+from avsum_torch.train.config import (
     MeshShape,
     ModelConfig,
     TrainConfig,
     load_config,
 )
-from avsum_torch.convert import scorer_from_flax
-from avsum_torch.models.scorer import make_model
-from avsum_torch.train import steps
-from avsum_torch.train.checkpoint import CheckpointManager
 from avsum_torch.train.trainer import Trainer
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -85,15 +87,15 @@ def test_schedule_matches_optax(warmup, total):
 def test_optimizer_matches_optax():
     """Four updates of a hand-made parameter tree, the third with a
     gradient whose global norm is above grad_clip."""
-    cfg = TrainConfig(lr=1e-2, warmup_steps=1, grad_clip=1.0,
-                      weight_decay=1e-2)
+    fields = dict(lr=1e-2, warmup_steps=1, grad_clip=1.0, weight_decay=1e-2)
+    cfg = TrainConfig(**fields)
     rng = np.random.default_rng(4)
     params = {"w": rng.standard_normal((5, 3)).astype(np.float32),
               "b": rng.standard_normal(3).astype(np.float32)}
     scales = [0.05, 0.1, 5.0, 0.1]
     grads = [{k: s * rng.standard_normal(v.shape).astype(np.float32)
               for k, v in params.items()} for s in scales]
-    tx = jax_steps.make_optimizer(cfg, total_steps=10)
+    tx = jax_steps.make_optimizer(JaxTrainConfig(**fields), total_steps=10)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     opt_state = tx.init(jp)
     tp = [torch.from_numpy(params[k].copy()) for k in ("w", "b")]
@@ -142,15 +144,16 @@ def _without_key_bias(name, value):
 
 @pytest.mark.parametrize("encoder,s", [("attention", 520), ("bilstm", 40)])
 def test_train_steps_match_jax(encoder, s):
-    mcfg = ModelConfig(visual_dim=48, audio_dim=24, hidden_dim=32,
-                       num_heads=2, scorer_hidden=16, dropout=0.0,
-                       temporal_encoder=encoder)
-    tcfg = TrainConfig(lr=3e-3, warmup_steps=2, seed=3)
+    model_fields = dict(visual_dim=48, audio_dim=24, hidden_dim=32,
+                        num_heads=2, scorer_hidden=16, dropout=0.0,
+                        temporal_encoder=encoder)
+    train_fields = dict(lr=3e-3, warmup_steps=2, seed=3)
+    mcfg, tcfg = ModelConfig(**model_fields), TrainConfig(**train_fields)
     batches = _parity_batches(s)
-    jm = jax_make_model(mcfg)
+    jm = jax_make_model(JaxModelConfig(**model_fields))
     with jax.default_matmul_precision("highest"):
-        state = jax_steps.create_train_state(jm, tcfg, batches[0],
-                                             total_steps=20)
+        state = jax_steps.create_train_state(jm, JaxTrainConfig(**train_fields),
+                                             batches[0], total_steps=20)
         init = scorer_from_flax(jax.device_get(state.params))
         model = make_model(mcfg, state_dict=init)
         jstep = jax_steps.make_train_step(jm, mesh=None, seed=tcfg.seed)
@@ -416,7 +419,7 @@ def test_evaluate_videos_averages_per_video_metrics(tmp_path):
 
 def test_cli_train_with_splits_evaluates_the_test_videos(tmp_path):
     from avsum_torch.cli.main import main
-    from avsum_tpu.data.splits import create_split, save_splits
+    from avsum_torch.data.splits import create_split, save_splits
 
     _write_cache(f"{tmp_path}/cache", 5)
     ids = FeatureCache(f"{tmp_path}/cache").video_ids()

@@ -11,13 +11,14 @@ import pytest
 import torch
 
 from avsum_tpu.ops.color import yuv420_to_rgb_device
-from avsum_tpu.train.config import VisualFeatConfig
+from avsum_tpu.train.config import VisualFeatConfig as JaxVisualFeatConfig
 from avsum_tpu.vision import backbone as jbb
 from avsum_tpu.vision.inception import InceptionV3 as JaxInception
 from avsum_tpu.vision.resnet import Bottleneck as JaxBottleneck
 from avsum_tpu.vision.resnet import ResNet50 as JaxResNet50
 from avsum_torch.convert import dual_backbone_from_flax, tiny_backbone_from_flax
 from avsum_torch.ops.color import yuv420_to_rgb
+from avsum_torch.train.config import VisualFeatConfig
 from avsum_torch.vision import backbone as tbb
 from avsum_torch.vision.inception import InceptionV3
 from avsum_torch.vision.resnet import Bottleneck, ResNet50
@@ -124,8 +125,9 @@ def test_tiny_backbone_matches_jax(hw):
 def test_pool_matches_jax_pool_on_device():
     """Masked segment mean (frames past the per-shot cap excluded), the
     pool_on_device path with run_ids=None."""
-    cfg = VisualFeatConfig(backbone="tiny", feature_dim=64, dtype="float32")
-    fe = jbb.VisualFrontend(cfg, model=jbb.TinyBackbone(64), batch_size=8)
+    fields = dict(backbone="tiny", feature_dim=64, dtype="float32")
+    fe = jbb.VisualFrontend(JaxVisualFeatConfig(**fields),
+                            model=jbb.TinyBackbone(64), batch_size=8)
     frames = np.random.default_rng(3).integers(0, 255, (20, 32, 32, 3),
                                                dtype=np.uint8)
     pending = [fe._embed(fe.variables, jnp.asarray(np.concatenate(
@@ -136,7 +138,8 @@ def test_pool_matches_jax_pool_on_device():
     keep[10:12] = False
     ref, ref_counts = fe.pool_on_device(pending, 20, shot_ids, keep, 3)
     feats = torch.from_numpy(np.concatenate([np.asarray(p) for p in pending])[:20])
-    tfe = tbb.VisualFrontend(cfg, tbb.TinyBackbone(64), "cpu")
+    tfe = tbb.VisualFrontend(VisualFeatConfig(**fields), tbb.TinyBackbone(64),
+                             "cpu")
     got, counts = tfe.pool(feats, shot_ids, keep, 3)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(counts.numpy(), ref_counts)
