@@ -1,5 +1,6 @@
-"""The port's CLI (``avsum_tpu/cli/main.py``): ``summarize`` (same JSON
-keys) and ``train``.
+"""The port's CLI (``avsum_tpu/cli/main.py``): ``preprocess``, ``splits``,
+``train``, ``evaluate`` and ``summarize``, with the JAX CLI's JSON keys.
+Every command runs on ``--device`` (default ``cuda``).
 
 ``python -m avsum_torch.cli summarize VIDEO``. Weights: ``--weights
 FILE.pt`` holds a dict of state_dicts under "scorer", "visual" and
@@ -7,13 +8,31 @@ FILE.pt`` holds a dict of state_dicts under "scorer", "visual" and
 part with ``--random-init``, is drawn from ``--seed``. ``--checkpoint
 DIR`` takes the scorer's parameters from the port's latest training
 checkpoint there. Without any of them there is no scorer and every shot
-scores 1, as in the JAX CLI without ``--checkpoint``.
+scores 1, as in the JAX CLI without ``--checkpoint``. ``summarize DIR``
+writes one ``<video_id>.json`` per ``.y4m`` / ``.mp4`` into ``--output``
+(default ``summaries``); ``--render STEM`` also writes the summary's
+media to ``STEM.y4m`` + ``STEM.wav``, or to one mp4 when STEM ends in
+``.mp4``.
+
+``python -m avsum_torch.cli preprocess --input-dir DIR --cache-dir C``:
+every video of DIR into the feature cache, with the backbone and VGGish
+weights from ``--weights`` / ``--seed`` as in ``summarize``.
+``splits --cache-dir C --output S.json [--kfold]`` writes seeded folds of
+the cached ids.
 
 ``python -m avsum_torch.cli train --config C.yaml``: the scorer trained on
 the feature cache (``data.cache_dir``) with the dataset's annotations,
 ``total_steps`` = steps per epoch x epochs; ``--splits``/``--fold`` pick
 the train videos and evaluate on the test ones, ``--resume`` continues
 from the latest checkpoint at the epoch after it.
+
+``python -m avsum_torch.cli evaluate --splits S.json --fold K
+[--canonical]``: the scorer from the latest checkpoint in
+``train.checkpoint_dir`` (random weights, with a warning, when there is
+none) on the fold's test videos (every cached video without
+``--splits``); prints one JSON line of f1, spearman and kendall, plus
+canonical_f1 and n_videos with ``--canonical`` (the per-annotator
+knapsack F1 of :mod:`avsum_torch.summary.protocol`).
 """
 
 from __future__ import annotations
@@ -74,19 +93,61 @@ def summary_json(result: dict) -> dict:
     }
 
 
-def cmd_summarize(args) -> int:
+def _media_setup(args) -> dict:
+    """The native decoder built, TF32 off on the card (float32 products
+    stay float32, the port's parity setting) -> the ``--weights`` dict."""
     from avsum_torch.build import ensure_native_io
 
-    cfg = load_config(args.config, args.overrides)
     ensure_native_io()
     if args.device.startswith("cuda"):
-        # float32 products stay float32 (the port's parity setting)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    weights = {}
-    if args.weights:
-        weights = torch.load(args.weights, map_location="cpu",
-                             weights_only=True)
+    if not args.weights:
+        return {}
+    return torch.load(args.weights, map_location="cpu", weights_only=True)
+
+
+def cmd_preprocess(args) -> int:
+    from avsum_torch.data.cache import FeatureCache
+
+    cfg = load_config(args.config, args.overrides)
+    weights = _media_setup(args)
+    pipeline, _ = build_pipeline(cfg, args.device, args.seed, weights,
+                                 with_scorer=False)
+    cache = FeatureCache(args.cache_dir or cfg.data.cache_dir)
+    done = pipeline.preprocess_dataset(args.input_dir or cfg.data.video_dir,
+                                       cache)
+    log.info("preprocessed %d videos", len(done))
+    return 0
+
+
+def cmd_splits(args) -> int:
+    from avsum_torch.data.cache import FeatureCache
+    from avsum_torch.data.splits import (
+        create_kfold_splits,
+        create_split,
+        save_splits,
+    )
+
+    cfg = load_config(args.config, args.overrides)
+    cache = FeatureCache(args.cache_dir or cfg.data.cache_dir)
+    ids = cache.video_ids()
+    if not ids:
+        log.error("no cached videos in %s", cache.cache_dir)
+        return 1
+    if args.kfold:
+        splits = create_kfold_splits(ids, cfg.data.n_folds, cfg.data.split_seed)
+    else:
+        splits = create_split(ids, seed=cfg.data.split_seed)
+    out = args.output or cfg.data.splits_path
+    save_splits(splits, out)
+    log.info("wrote %s (%d videos)", out, len(ids))
+    return 0
+
+
+def cmd_summarize(args) -> int:
+    cfg = load_config(args.config, args.overrides)
+    weights = _media_setup(args)
     if args.checkpoint:
         from avsum_torch.train.checkpoint import CheckpointManager
 
@@ -98,7 +159,35 @@ def cmd_summarize(args) -> int:
     pipeline, model = build_pipeline(
         cfg, args.device, args.seed, weights,
         with_scorer=args.random_init or "scorer" in weights)
+
+    if os.path.isdir(args.video):
+        out_dir = args.output or "summaries"
+        os.makedirs(out_dir, exist_ok=True)
+        n_ok = 0
+        for name in sorted(os.listdir(args.video)):
+            if not name.lower().endswith((".y4m", ".mp4")):
+                continue
+            try:
+                out = summary_json(pipeline.summarize(
+                    os.path.join(args.video, name), model))
+                with open(os.path.join(out_dir, out["video_id"] + ".json"),
+                          "w") as fh:
+                    json.dump(out, fh, indent=1)
+                n_ok += 1
+            except Exception as e:  # noqa: BLE001 — per-item isolation
+                log.error("failed %s: %s", name, e)
+        log.info("summarized %d videos -> %s", n_ok, out_dir)
+        return 0 if n_ok else 1
+
     out = summary_json(pipeline.summarize(args.video, model))
+    if args.render:
+        from avsum_torch.summary.render import render_summary
+
+        stem, ext = os.path.splitext(args.render)
+        if ext.lower() == ".mp4":
+            render_summary(args.video, out["segments"], stem, container="mp4")
+        else:
+            render_summary(args.video, out["segments"], args.render)
     if args.output:
         with open(args.output, "w") as fh:
             json.dump(out, fh, indent=1)
@@ -166,6 +255,67 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_evaluate(args) -> int:
+    from avsum_torch.data.batching import batch_iterator
+    from avsum_torch.data.splits import load_splits
+    from avsum_torch.models.scorer import make_model
+    from avsum_torch.train.trainer import Trainer
+
+    cfg = load_config(args.config, args.overrides)
+    video_ids = None
+    if args.splits:
+        splits = load_splits(args.splits)
+        split = splits[args.fold] if isinstance(splits, list) else splits
+        video_ids = split["test"]
+    examples = _load_examples(cfg, video_ids)
+    if not examples:
+        log.error("no eval examples found")
+        return 1
+    trainer = Trainer(make_model(cfg.model, seed=cfg.train.seed), cfg,
+                      device=args.device)
+    trainer.init_state()
+    if trainer.maybe_restore() is None:
+        log.warning("no checkpoint found in %s; evaluating random init",
+                    cfg.train.checkpoint_dir)
+    metrics = trainer.evaluate_videos(batch_iterator(
+        examples, cfg.data.batch_videos, cfg.data.max_shots, shuffle=False))
+    if args.canonical:
+        metrics.update(_canonical_eval(cfg, trainer, examples))
+    print(json.dumps(metrics))
+    return 0
+
+
+def _canonical_eval(cfg: Config, trainer, examples) -> dict:
+    """Canonical per-annotator knapsack F1 (summary/protocol.py) over the
+    examples that have annotations; every shot of a video is scored."""
+    from avsum_torch.summary.protocol import evaluate_canonical
+
+    if cfg.data.dataset == "tvsum":
+        from avsum_torch.data.tvsum import load_tvsum, tvsum_index
+
+        anno = tvsum_index(load_tvsum(cfg.data.annotation_path))
+        user_key = "user_frame_scores"
+
+        def users(video_id):
+            return anno[video_id].user_scores
+    elif cfg.data.dataset == "summe":
+        from avsum_torch.data.summe import load_summe_dir
+
+        anno = {v.video_id: v for v in load_summe_dir(cfg.data.annotation_path)}
+        user_key = "user_masks"
+
+        def users(video_id):
+            return anno[video_id].user_score
+    else:
+        return {}
+    videos = [{"pred_shot_scores": trainer.score_video(ex, cfg.data.max_shots),
+               "boundaries": ex.shot_boundaries, "n_frames": ex.n_frames,
+               user_key: users(ex.video_id)}
+              for ex in examples if ex.video_id in anno]
+    return evaluate_canonical(videos, cfg.data.dataset,
+                              cfg.summary.budget_fraction)
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", default=None, help="YAML config path")
     p.add_argument("--set", dest="overrides", action="append", default=[],
@@ -178,8 +328,42 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="avsum_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("summarize", help="summarize one video")
-    p.add_argument("video")
+
+    p = sub.add_parser("preprocess", help="extract features into the cache")
+    _add_common(p)
+    p.add_argument("--input-dir", default=None)
+    p.add_argument("--cache-dir", default=None)
+    p.add_argument("--weights", default=None,
+                   help="torch file of state_dicts (avsum_torch.convert)")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_preprocess)
+
+    p = sub.add_parser("splits", help="create seeded train/test splits")
+    _add_common(p)
+    p.add_argument("--cache-dir", default=None)
+    p.add_argument("--output", default=None)
+    p.add_argument("--kfold", action="store_true", help="canonical k-fold")
+    p.set_defaults(fn=cmd_splits)
+
+    p = sub.add_parser("train", help="train the scorer")
+    _add_common(p)
+    p.add_argument("--splits", default=None, help="splits JSON")
+    p.add_argument("--fold", type=int, default=0)
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("evaluate", help="evaluate the latest checkpoint")
+    _add_common(p)
+    p.add_argument("--splits", default=None, help="splits JSON")
+    p.add_argument("--fold", type=int, default=0)
+    p.add_argument("--canonical", action="store_true",
+                   help="also the canonical per-annotator knapsack F1")
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("summarize",
+                       help="summarize a video (or a directory of videos)")
+    p.add_argument("video", help="video file or directory (batch mode)")
     _add_common(p)
     w = p.add_mutually_exclusive_group()
     w.add_argument("--weights", default=None,
@@ -189,22 +373,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--checkpoint", default=None, metavar="DIR",
                    help="the scorer from this training checkpoint dir")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--output", default=None, help="write the JSON here")
-    p = sub.add_parser("train", help="train the scorer")
-    _add_common(p)
-    p.add_argument("--splits", default=None, help="splits JSON")
-    p.add_argument("--fold", type=int, default=0)
-    p.add_argument("--resume", action="store_true",
-                   help="continue from the latest checkpoint")
+    p.add_argument("--output", default=None,
+                   help="write the JSON here (a directory for a directory)")
+    p.add_argument("--render", default=None, metavar="OUT_STEM",
+                   help="also write the summary media to OUT_STEM.y4m/.wav, "
+                        "or to one mp4 when OUT_STEM ends in .mp4")
+    p.set_defaults(fn=cmd_summarize)
+
     args = ap.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname).1s %(name)s: %(message)s")
-    if args.cmd == "summarize":
-        if os.path.isdir(args.video):
-            ap.error("summarize takes one video file")
-        return cmd_summarize(args)
-    return cmd_train(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
-"""End-to-end summarize: decode -> shots -> features -> scores -> summary.
+"""End-to-end pipeline: decode -> shots -> features -> scores -> summary,
+and the dataset sweep into the feature cache.
 
-Counterpart of ``avsum_tpu/pipeline.py::AVPipeline.summarize`` on the path
-the JAX package takes for a native Y4M reader with ``visual.sample_fps >
-0`` (``_begin_video`` -> ``_finish_prep`` -> ``_finish_video``, then
-``_score_summary_impl`` and ``_select_from_scores``), run synchronously:
+Counterpart of ``avsum_tpu/pipeline.py::AVPipeline``. Each video takes one
+of the JAX package's two paths, by :meth:`AVPipeline._fast_capable`:
+
+The fast path, for a native reader with ``visual.sample_fps > 0``
+(``_begin_video`` -> ``_finish_prep`` -> ``_finish_video``), run
+synchronously:
 
 1. frames sampled uniformly every round(fps / sample_fps) frames, read as
    YUV420 planes (resized on the host to ``visual.ship_size`` when the
@@ -15,6 +18,17 @@ the JAX package takes for a native Y4M reader with ``visual.sample_fps >
 4. audio streams for the whole waveform, pooled on each shot's samples;
 5. the scorer over the shot sequence (padded to a multiple of 32), then
    the knapsack under the summary budget.
+
+The classic path (``_process_video_classic``), for every other reader (the
+pure-NumPy Y4M reader, MJPEG MP4, OpenCV) and for ``visual.sample_fps <=
+0``: shots first, from the native reader's C++ scores where it has them,
+else from the device detector over frames streamed at the detection
+downscale; then every ``frame_stride``-th frame of each shot (or the
+``sample_fps`` stride), at most ``max_frames_per_shot``, embedded and
+mean-pooled per shot; then the audio per shot.
+
+``preprocess_dataset`` sweeps a directory into a ``FeatureCache``, one
+video after another.
 
 The JAX package's host threads, cross-video overlap, speculative
 device-resident scoring, frame dedup and packed-plane shipping are not
@@ -28,12 +42,13 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from avsum_torch.audio.frontend import AudioFrontend
+from avsum_torch.data.cache import FeatureCache, config_fingerprint
 from avsum_torch.io.video import audio_path_for, open_video
 from avsum_torch.io.wav import load_audio_mono_16k_ship
 from avsum_torch.summary.knapsack import select_summary
@@ -41,10 +56,11 @@ from avsum_torch.temporal.shots import (
     ContentDetectorConfig,
     boundaries_from_cuts,
     cuts_from_scores,
+    detect_shots_streaming,
     refined_content_scores,
 )
 from avsum_torch.train.config import Config
-from avsum_torch.vision.backbone import VisualFrontend
+from avsum_torch.vision.backbone import VisualFrontend, sample_shot_frames
 
 log = logging.getLogger("avsum_torch.pipeline")
 
@@ -62,10 +78,14 @@ class ProcessedVideo:
 
 
 class AVPipeline:
-    """Summarize one video at a time on ``device``.
+    """Summarize or preprocess one video at a time on ``device``.
 
     ``stage_seconds`` holds the host-clock seconds of each stage of the
-    last video (device work synchronized at each stage's end)."""
+    last video (device work synchronized at each stage's end): the fast
+    path's visual_embed, shot_detect, audio_features, visual_pool and
+    audio_pool, or the classic path's shot_detect, visual_features and
+    audio_features (each with its pooling); summarize adds score and
+    select."""
 
     def __init__(self, config: Config, visual: VisualFrontend,
                  audio: AudioFrontend,
@@ -88,6 +108,36 @@ class AVPipeline:
     # ------------------------------------------------------------------
     # host helpers (copies of the JAX pipeline's, which imports jax)
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _stream_blocks(reader, block: int = 256) -> Iterator[np.ndarray]:
+        if hasattr(reader, "iter_blocks"):  # native prefetched path
+            for _, frames in reader.iter_blocks(block_frames=block):
+                yield frames
+        else:
+            buf = []
+            for frame in reader.iter_frames():
+                buf.append(frame)
+                if len(buf) == block:
+                    yield np.stack(buf)
+                    buf = []
+            if buf:
+                yield np.stack(buf)
+
+    @staticmethod
+    def _detect_downscale(width: int) -> int:
+        """Integer subsampling for content scoring that keeps the scored
+        width >= 256 px (PySceneDetect's ``compute_downscale_factor``)."""
+        return max(1, width // 256)
+
+    def _stream_scaled_blocks(self, reader, scale: int,
+                              block: int = 512) -> Iterator[np.ndarray]:
+        if scale > 1 and hasattr(reader, "read_frames_scaled"):
+            for start in range(0, reader.n_frames, block):
+                idx = range(start, min(start + block, reader.n_frames))
+                yield reader.read_frames_scaled(idx, scale)
+        else:
+            yield from self._stream_blocks(reader, block)
 
     def _read_yuv(self, reader, idx):
         """YUV420 planes of frames ``idx``, host-resized to
@@ -169,26 +219,75 @@ class AVPipeline:
 
     def process_video(self, video_path: str) -> ProcessedVideo:
         """Shot boundaries and per-shot [S, 4096] / [S, 296] features."""
-        cfg = self.config
-        if cfg.visual.sample_fps <= 0:
-            raise ValueError("visual.sample_fps must be > 0: the "
-                             "frame_stride sampling path is not ported")
         reader = open_video(video_path)
+        video_id = os.path.splitext(os.path.basename(video_path))[0]
         try:
-            if not (hasattr(reader, "content_scores")
-                    and hasattr(reader, "read_yuv420")):
-                raise RuntimeError(
-                    f"{video_path!r} did not open with the native decoder "
-                    "(native/build/libavsumio.so; avsum_torch.build."
-                    "ensure_native_io builds it): shot detection needs its "
-                    "content_scores")
-            return self._process(reader, video_path)
+            self.stage_seconds = {}
+            if self._fast_capable(reader):
+                return self._process_video_fast(reader, video_id)
+            return self._process_video_classic(reader, video_id)
         finally:
             reader.close()
 
-    def _process(self, reader, video_path: str) -> ProcessedVideo:
+    def _fast_capable(self, reader) -> bool:
+        return (self.config.visual.sample_fps > 0
+                and hasattr(reader, "content_scores")
+                and hasattr(reader, "read_yuv420"))
+
+    def _process_video_classic(self, reader, video_id: str) -> ProcessedVideo:
+        """Shots first (the native reader's C++ scores, else the device
+        detector over streamed frames), then the features of each shot's
+        sampled frames, read whole."""
         cfg = self.config
-        self.stage_seconds = {}
+        fps, n_frames = reader.fps, reader.n_frames
+        with self._stage("shot_detect"):
+            scale = self._detect_downscale(reader.width)
+            if hasattr(reader, "content_scores"):
+                scores = refined_content_scores(reader, scale,
+                                                self.detector.threshold)
+                cuts = cuts_from_scores(scores, self.detector.threshold,
+                                        self.detector.min_scene_len)
+                boundaries = boundaries_from_cuts(cuts, n_frames)
+            else:
+                boundaries, n_frames = detect_shots_streaming(
+                    self._stream_scaled_blocks(reader, scale), self.detector,
+                    self.device)
+            if len(boundaries) == 0:
+                boundaries = np.array([[0, n_frames]], np.int64)
+
+        with self._stage("visual_features"):
+            if cfg.visual.sample_fps > 0:
+                stride = max(1, round(fps / cfg.visual.sample_fps))
+            else:
+                stride = cfg.visual.frame_stride
+            frame_idx, shot_ids = sample_shot_frames(
+                boundaries, stride, cfg.visual.max_frames_per_shot)
+            if hasattr(reader, "read_yuv420"):
+                visual = self.visual.shot_features(
+                    None, shot_ids, len(boundaries),
+                    yuv=self._read_yuv(reader, frame_idx))
+            else:
+                visual = self.visual.shot_features(
+                    reader.read_frames(frame_idx), shot_ids, len(boundaries))
+            visual = visual.cpu().numpy()
+
+        with self._stage("audio_features"):
+            waveform = self._load_audio(reader.path, n_frames / fps)
+            sample_bounds = (boundaries.astype(np.float64) / fps
+                             * cfg.audio.sample_rate)
+            audio = self.audio.shot_features(waveform,
+                                             sample_bounds).cpu().numpy()
+        return ProcessedVideo(
+            video_id=video_id,
+            visual=visual.astype(np.float32),
+            audio=audio.astype(np.float32),
+            boundaries=np.asarray(boundaries, np.int64),
+            fps=fps,
+            n_frames=n_frames,
+        )
+
+    def _process_video_fast(self, reader, video_id: str) -> ProcessedVideo:
+        cfg = self.config
         fps, n_frames = reader.fps, reader.n_frames
         stride = max(1, round(fps / cfg.visual.sample_fps))
         frame_idx = np.arange(0, n_frames, stride, dtype=np.int64)
@@ -202,7 +301,7 @@ class AVPipeline:
                      torch.zeros(0, cfg.visual.feature_dim, device=self.device))
 
         with self._stage("shot_detect"):
-            scale = max(1, reader.width // 256)
+            scale = self._detect_downscale(reader.width)
             scores = refined_content_scores(reader, scale,
                                             self.detector.threshold)
             cuts = cuts_from_scores(scores, self.detector.threshold,
@@ -212,7 +311,7 @@ class AVPipeline:
                 boundaries = np.array([[0, n_frames]], np.int64)
 
         with self._stage("audio_features"):
-            waveform = self._load_audio(video_path, n_frames / fps)
+            waveform = self._load_audio(reader.path, n_frames / fps)
             audio_full = self.audio.full_features(waveform)
 
         with self._stage("visual_pool"):
@@ -238,13 +337,64 @@ class AVPipeline:
             audio = self.audio.pool(audio_full, sample_bounds).cpu().numpy()
 
         return ProcessedVideo(
-            video_id=os.path.splitext(os.path.basename(video_path))[0],
+            video_id=video_id,
             visual=visual.astype(np.float32),
             audio=audio.astype(np.float32),
             boundaries=np.asarray(boundaries, np.int64),
             fps=fps,
             n_frames=n_frames,
         )
+
+    # ------------------------------------------------------------------
+    # the dataset sweep
+    # ------------------------------------------------------------------
+
+    def preprocess_dataset(self, input_dir: str, cache: FeatureCache,
+                           extensions=(".y4m", ".mp4", ".mov", ".m4v")
+                           ) -> List[str]:
+        """Sweep ``input_dir`` into ``cache``, one video after another ->
+        the ids now cached. A video cached under this configuration's
+        fingerprint is skipped and one cached under another is extracted
+        again; a video that fails is logged and dropped, and the sweep goes
+        on."""
+        fp = config_fingerprint(self.config.visual, self.config.audio,
+                                self.detector)
+        done = []
+        for name in sorted(f for f in os.listdir(input_dir)
+                           if f.lower().endswith(extensions)):
+            video_id = os.path.splitext(name)[0]
+            if cache.matches(video_id, fp):
+                log.info("skip %s (cached)", video_id)
+                done.append(video_id)
+                continue
+            if cache.has(video_id):
+                log.info("re-extracting %s (feature config changed)",
+                         video_id)
+                cache.drop(video_id)
+            t0 = time.perf_counter()
+            try:
+                p = self.process_video(os.path.join(input_dir, name))
+                self._validate_dims(p)
+                cache.put(p.video_id, p.visual, p.audio, p.boundaries, p.fps,
+                          p.n_frames, fingerprint=fp)
+            except Exception as e:  # noqa: BLE001 — per-item isolation
+                cache.drop(video_id)
+                log.error("failed %s: %s", video_id, e)
+                continue
+            done.append(video_id)
+            secs = time.perf_counter() - t0
+            log.info("cached %s: %d shots, %d frames in %.3f s, stages %s",
+                     video_id, len(p.boundaries), p.n_frames, secs,
+                     {k: round(v, 4) for k, v in self.stage_seconds.items()})
+        return done
+
+    def _validate_dims(self, p: ProcessedVideo) -> None:
+        """At least one shot, and the configured feature widths."""
+        if (len(p.visual) == 0
+                or p.visual.shape[1] != self.config.visual.feature_dim
+                or p.audio.shape[1] != self.config.audio.feature_dim):
+            raise ValueError(
+                f"invalid feature dims {p.visual.shape}/{p.audio.shape}")
 
     # ------------------------------------------------------------------
     # scoring + selection

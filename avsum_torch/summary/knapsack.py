@@ -1,5 +1,5 @@
 """Knapsack summary selection: numpy copies of
-``avsum_tpu/summary/knapsack.py:72-139`` (that module imports jax at its
+``avsum_tpu/summary/knapsack.py:72-149`` (that module imports jax at its
 top). Only the NumPy DP is ported; problems of 5e7 cells or more, where
 the JAX package switches to its jitted DP, raise here.
 """
@@ -64,3 +64,11 @@ def select_summary(
             f"reaches {MAX_DP_CELLS} cells: the device DP is not ported yet")
     selected = knapsack_select_np(values, lengths, capacity)
     return selected, bounds[selected]
+
+
+def frame_summary_mask(segments: np.ndarray, total_frames: int) -> np.ndarray:
+    """Binary per-frame membership vector for a list of segments."""
+    out = np.zeros(total_frames, dtype=bool)
+    for start, end in np.asarray(segments, np.int64).reshape(-1, 2):
+        out[max(0, start):min(total_frames, end)] = True
+    return out

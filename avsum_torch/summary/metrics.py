@@ -1,8 +1,9 @@
 """Evaluation metrics in NumPy (``avsum_tpu/summary/metrics.py``, whose
 versions are jnp): mean-threshold keyframe F1, Spearman rho on average
 ranks, Kendall tau-b (the pairwise form up to ``TAU_PAIRWISE_MAX``
-values, Knight's O(n log n) form above), and the per-video bundle.
-float32 like the JAX functions; Knight's form in float64 as there.
+values, Knight's O(n log n) form above), the per-video bundle, and the
+segment-overlap temporal F1. float32 like the JAX functions; Knight's
+form and the segment metrics in float64 as there.
 """
 
 from __future__ import annotations
@@ -122,6 +123,36 @@ def kendall_tau(pred, target) -> float:
     if np.asarray(pred).size > TAU_PAIRWISE_MAX:
         return _kendall_tau_knight(pred, target)
     return _kendall_tau_pairwise(pred, target)
+
+
+def rank_correlations(pred, target) -> Dict[str, float]:
+    return {"spearman": spearman_rho(pred, target),
+            "kendall": kendall_tau(pred, target)}
+
+
+def segment_overlap(pred_segments, gt_segments) -> float:
+    """Total pairwise temporal overlap of two [K, 2] segment lists."""
+    pred = np.asarray(pred_segments, np.float64).reshape(-1, 2)
+    gt = np.asarray(gt_segments, np.float64).reshape(-1, 2)
+    if pred.size == 0 or gt.size == 0:
+        return 0.0
+    lo = np.maximum(pred[:, None, 0], gt[None, :, 0])
+    hi = np.minimum(pred[:, None, 1], gt[None, :, 1])
+    return float(np.maximum(0.0, hi - lo).sum())
+
+
+def segment_f1(pred_segments, gt_segments) -> float:
+    """Temporal-overlap F1 of two segment lists (0 when either is empty)."""
+    pred = np.asarray(pred_segments, np.float64).reshape(-1, 2)
+    gt = np.asarray(gt_segments, np.float64).reshape(-1, 2)
+    overlap = segment_overlap(pred, gt)
+    pred_len = float((pred[:, 1] - pred[:, 0]).sum()) if pred.size else 0.0
+    gt_len = float((gt[:, 1] - gt[:, 0]).sum()) if gt.size else 0.0
+    if pred_len <= 0 or gt_len <= 0:
+        return 0.0
+    precision = overlap / pred_len
+    recall = overlap / gt_len
+    return 2.0 * precision * recall / (precision + recall + _EPS)
 
 
 def evaluate_scores(pred, target, mask=None) -> Dict[str, float]:

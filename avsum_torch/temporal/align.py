@@ -54,3 +54,13 @@ def frame_scores_to_shot_scores(frame_scores, shot_boundaries) -> np.ndarray:
     start = np.clip(bounds[:, 0], 0, n - 1)
     end = np.clip(bounds[:, 1], start + 1, n)
     return ((cs[end] - cs[start]) / (end - start)).astype(np.float32)
+
+
+def expand_shot_scores_to_frames(shot_scores, shot_boundaries,
+                                 total_frames: int) -> np.ndarray:
+    """Per-shot scores broadcast back to a [total_frames] float32 vector."""
+    out = np.zeros(total_frames, np.float32)
+    bounds = np.asarray(shot_boundaries, np.int64).reshape(-1, 2)
+    for score, (start, end) in zip(np.asarray(shot_scores).reshape(-1), bounds):
+        out[max(0, start):min(total_frames, end)] = score
+    return out

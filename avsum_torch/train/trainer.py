@@ -35,14 +35,15 @@ log = logging.getLogger("avsum_torch.train")
 
 
 class Trainer:
-    """Drives (model, config) over padded numpy batches on ``device``.
+    """Drives (model, config) over padded numpy batches on ``device``
+    (the card unless the caller asks for the CPU).
 
     ``batches_fn(epoch)`` yields dicts with visual [B,S,Dv], audio
     [B,S,Da], targets [B,S] and mask [B,S] (``avsum_torch.data.batching``).
     """
 
     def __init__(self, model: nn.Module, config: Config,
-                 total_steps: int = 10_000, device="cpu"):
+                 total_steps: int = 10_000, device="cuda"):
         check_single_device(config.mesh)
         apply_matmul_precision(config.train.matmul_precision)
         if config.train.debug_nans:

@@ -144,6 +144,29 @@ class VisualFrontend:
         return torch.cat(feats)
 
     @torch.inference_mode()
+    def frame_features(self, frames: np.ndarray) -> torch.Tensor:
+        """[F, H, W, 3] RGB frames -> [F, D] float32 features on the
+        device, in batches of ``batch_size`` frames (uint8 goes up as it
+        is and is converted on the device)."""
+        feats = [self.model(torch.from_numpy(np.ascontiguousarray(
+            frames[i:i + self.batch_size])).to(self.device)).float()
+            for i in range(0, frames.shape[0], self.batch_size)]
+        if not feats:
+            return torch.zeros(0, self.config.feature_dim, device=self.device)
+        return torch.cat(feats)
+
+    def shot_features(self, frames: Optional[np.ndarray],
+                      frame_shot_ids: np.ndarray, n_shots: int,
+                      yuv=None) -> torch.Tensor:
+        """Frames tagged with their shot id -> [n_shots, D] mean-pooled on
+        the device; a shot with no frame gets zeros. ``yuv=(y, u, v)``
+        planes (with ``frames`` None) take the YUV420 path."""
+        feats = (self.frame_features_yuv(*yuv) if yuv is not None
+                 else self.frame_features(frames))
+        ids = np.asarray(frame_shot_ids, np.int64)
+        return self.pool(feats, ids, np.ones(len(ids), bool), n_shots)[0]
+
+    @torch.inference_mode()
     def pool(self, feats: torch.Tensor, shot_ids: np.ndarray,
              keep: np.ndarray, n_shots: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Masked segment mean of ``pool_on_device`` (run_ids=None): frame f

@@ -35,10 +35,22 @@ raising on failure:
    the parameters after 3 steps;
 8. one train step at S = 7168 with remat (``scripts/bench_train_hour.py``'s
    shape): its time, peak device memory, and the device time of two
-   steps by kernel (K2, B3, B4, cuBLAS, the rest; torch.profiler).
+   steps by kernel (K2, B3, B4, cuBLAS, the rest; torch.profiler);
+9. the dataset path through the CLI at the ``configs/summe.yaml`` widths
+   (those of phase 3), on a directory of the phase 3 and 4 videos and
+   three more, with SumMe-shaped ground truth of five users each:
+   ``preprocess`` (K1 once a video, the cache [S, 4096] / [S, 296] and
+   finite, the short video's entry equal to phase 3's features; a second
+   sweep launches nothing); the classic path (the pure-NumPy Y4M reader,
+   the device shot detector) on the short video against the fast path,
+   and the detector's scores on the card against the CPU's; ``splits
+   --kfold``; ``train --splits --fold 0`` for 2 epochs; ``evaluate
+   --canonical`` over the five videos (K2 runs: the 533-shot video's
+   ladder reaches S = 1024); ``summarize DIR`` and ``summarize --render``
+   with the trained scorer.
 
-Launch counts are reset just before each run of phases 3-5 and read just
-after it; the comparisons of phases 6-8 are not counted.
+Launch counts are reset just before each run of phases 3-5 and 9 and read
+just after it; the comparisons of phases 6-8 are not counted.
 
 The last three lines are the kernels' JSON, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -47,7 +59,10 @@ when there is no CUDA device or no checkout beside the script.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -66,6 +81,11 @@ GRAD_TOL = 1e-4  # card vs CPU gradients, relative to each tensor's max |g|
 PARAM_TOL = 1e-5  # card vs CPU parameters after 3 train steps
 HOUR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "hour_scale.yaml")
+SUMME_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs", "summe.yaml")
+FEATURE_TOL = dict(rtol=1e-3, atol=1e-3)  # preprocess vs summarize features
+SHOT_TOL = 1e-3  # device shot scores, card vs CPU
+CLASSIC_CORR = 0.98  # classic vs fast path features (the JAX test's bound)
 # NVIDIA H100 SXM, dense (data sheet): TF32 tensor-core rate, HBM3 rate
 TF32_FLOPS = 495e12
 HBM_BYTES = 3.35e12
@@ -418,19 +438,26 @@ def check_b34() -> tuple:
         torch.cuda.synchronize()
         torch.testing.assert_close(dq, pq, **B34_TOL)
         del dq, pq
-        t = compare_ms({"dkv": lambda: att.flash_bwd_dkv(*args),
-                        "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args),
-                        "dq": lambda: att.flash_bwd_dq(*args),
-                        "dq_plain": lambda: att.flash_bwd_dq_plain(*args)},
-                       iters=5)
+        fns = {"dkv": lambda: att.flash_bwd_dkv(*args),
+               "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args),
+               "dq": lambda: att.flash_bwd_dq(*args),
+               "dq_plain": lambda: att.flash_bwd_dq_plain(*args)}
+        lib_note, library = _library_backward(qkv, mask, cot)
+        if library is not None:
+            fns["library"] = library
+        t = compare_ms(fns, iters=5)
         b3 = attention_bound(1, 7168, 4, d, products=4, in_rows=4,
                              out_rows=2)
         b4 = attention_bound(1, 7168, 4, d, products=3, in_rows=4,
                              out_rows=1)
+        lib = (f"{fmt_ms(t['library'])} against B3 + B4 "
+               f"{t['dkv'][0] + t['dq'][0]:.3f} ms" if library else "none")
         print(f"B3/B4 at [1, 7168, 4, {d}]: B3 {fmt_ms(t['dkv'])}, plain "
               f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms; B4 "
               f"{fmt_ms(t['dq'])}, plain {fmt_ms(t['dq_plain'])}, bound "
-              f"{b4['bound_ms']:.4f} ms")
+              f"{b4['bound_ms']:.4f} ms; library (SDPA efficient-attention "
+              f"backward, dq dk dv) {lib} ({lib_note})")
+        del fns, library, args
     t, b3, b4 = timing[256]
     library = t.get("library")
     return ({"max_abs_err": worst["dkv"], "ms": t["dkv"],
@@ -678,14 +705,17 @@ def profile_step(run_step, steps: int) -> None:
 
 
 def _video(stem: str, n_scenes: int, height: int, width: int,
-           scene_len: tuple, seed: int) -> None:
+           scene_len: tuple, seed: int) -> int:
+    """Write ``stem``.y4m and .wav -> the number of frames."""
     from avsum_torch.io import write_scene_video
 
     t0 = time.perf_counter()
-    write_scene_video(stem, n_scenes=n_scenes, seed=seed, height=height,
-                      width=width, scene_len_frames=scene_len)
+    scenes = write_scene_video(stem, n_scenes=n_scenes, seed=seed,
+                               height=height, width=width,
+                               scene_len_frames=scene_len)
     print(f"wrote {stem}.y4m ({n_scenes} scenes, {width}x{height}) in "
           f"{time.perf_counter() - t0:.1f} s")
+    return int(scenes[-1][1])
 
 
 def _check_summary(result: dict, budget: float) -> None:
@@ -706,17 +736,28 @@ def _check_summary(result: dict, budget: float) -> None:
     print(f"summary: {len(seg)} segments, {used}/{cap} budget frames")
 
 
-def run_summarize(pipeline, model, path: str, budget: float):
+def _k12_counts() -> dict:
+    from avsum_torch.ops.attention import flash_attention
+    from avsum_torch.ops.melspec import fused_log_mel
+
+    return {"melspec": fused_log_mel.launches,
+            "flash_fwd": flash_attention.launches}
+
+
+def _reset_k12() -> None:
     from avsum_torch.ops.attention import flash_attention
     from avsum_torch.ops.melspec import fused_log_mel
 
     fused_log_mel.launches = 0
     flash_attention.launches = 0
+
+
+def run_summarize(pipeline, model, path: str, budget: float):
+    _reset_k12()
     t0 = time.perf_counter()
     result = pipeline.summarize(path, model)
     secs = time.perf_counter() - t0
-    counts = {"melspec": fused_log_mel.launches,
-              "flash_fwd": flash_attention.launches}
+    counts = _k12_counts()
     stages = {k: round(v, 4) for k, v in pipeline.stage_seconds.items()}
     print(f"summarize {path}: {len(result['boundaries'])} shots, "
           f"{secs:.2f} s, launches {counts}, stages {json.dumps(stages)}")
@@ -724,10 +765,11 @@ def run_summarize(pipeline, model, path: str, budget: float):
     return result, counts
 
 
-def check_against_cpu(pipeline, model, path: str, result: dict) -> None:
+def check_against_cpu(pipeline, model, path: str, result: dict):
     """The card's scorer against its plain path on the CPU, on the same
     features; the MFCC / log-mel columns of the audio features (kernel
-    K1's outputs) against the CPU's plain versions."""
+    K1's outputs) against the CPU's plain versions -> the video's
+    ``ProcessedVideo``."""
     import numpy as np
     import torch
 
@@ -758,6 +800,211 @@ def check_against_cpu(pipeline, model, path: str, result: dict) -> None:
     np.testing.assert_allclose(p.audio[:, :168], ref_a, **K1_TOL)
     print(f"audio MFCC/log-mel: card vs CPU max|d| "
           f"{np.abs(p.audio[:, :168] - ref_a).max():.3e}")
+    return p
+
+
+def _write_summe_gt(path: str, n_frames: int, seed: int,
+                    n_users: int = 5) -> None:
+    """A SumMe-shaped ground-truth .mat: each user keeps three runs of
+    ~5% of the frames."""
+    import numpy as np
+    import scipy.io
+
+    rng = np.random.default_rng(seed)
+    users = np.zeros((n_frames, n_users), np.float32)
+    run = max(3, n_frames // 20)
+    for u in range(n_users):
+        for start in rng.choice(n_frames - run, 3, replace=False):
+            users[start:start + run, u] = 1.0
+    scipy.io.savemat(path, {"gt_score": users.mean(1, keepdims=True),
+                            "user_score": users, "nFrames": n_frames,
+                            "FPS": 30.0})
+
+
+class _Messages(logging.Handler):
+    """Keeps the messages of one logger (the sweep's per-video lines)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def run_cli(label: str, *argv: str) -> tuple:
+    """One CLI command with K1's and K2's counts reset just before it ->
+    (counts, its standard output)."""
+    from avsum_torch.cli.main import main
+
+    _reset_k12()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(list(argv))
+    counts = _k12_counts()
+    print(f"{label}: rc {rc}, {time.perf_counter() - t0:.2f} s, launches "
+          f"{counts}")
+    if rc != 0:
+        raise AssertionError(f"{label} exited {rc}")
+    return counts, out.getvalue()
+
+
+def check_classic(pipeline, vdir: str, short_fast) -> None:
+    """The classic path (pure-NumPy Y4M reader, the device shot detector)
+    on the card: against the fast path on ``scenes0``, whose cuts both
+    detectors find with a wide margin; on ``short`` (640x360, scored at
+    half width), against the detector's scores on the CPU over the same
+    frames."""
+    import numpy as np
+    import torch
+
+    import avsum_torch.pipeline as pipeline_mod
+    from avsum_torch.io.y4m import Y4MReader
+    from avsum_torch.temporal import shots
+
+    fast = pipeline.process_video(f"{vdir}/scenes0.y4m")
+    native = pipeline_mod.open_video
+    pipeline_mod.open_video = lambda p, prefer_native=True: Y4MReader(p)
+    try:
+        classic = {}
+        for vid in ("scenes0", "short"):
+            t0 = time.perf_counter()
+            classic[vid] = pipeline.process_video(f"{vdir}/{vid}.y4m")
+            stages = {k: round(v, 4) for k, v in
+                      pipeline.stage_seconds.items()}
+            print(f"classic path {vid}: {len(classic[vid].boundaries)} "
+                  f"shots, {time.perf_counter() - t0:.2f} s, stages "
+                  f"{json.dumps(stages)}")
+    finally:
+        pipeline_mod.open_video = native
+    got = classic["scenes0"]
+    corr = [float(np.corrcoef(a.ravel(), b.ravel())[0, 1]) for a, b in
+            ((got.visual, fast.visual), (got.audio, fast.audio))]
+    print(f"classic vs fast path on scenes0: shots {len(got.boundaries)} / "
+          f"{len(fast.boundaries)}, feature correlation visual {corr[0]:.5f}, "
+          f"audio {corr[1]:.5f}")
+    if not np.array_equal(got.boundaries, fast.boundaries):
+        raise AssertionError("the classic path's shots differ from the fast "
+                             "path's")
+    if min(corr) <= CLASSIC_CORR:
+        raise AssertionError(f"classic vs fast features: correlation {corr}")
+
+    with Y4MReader(f"{vdir}/short.y4m") as reader:
+        frames = torch.from_numpy(reader.read_frames_scaled(
+            range(reader.n_frames), pipeline._detect_downscale(reader.width)))
+    card = shots.content_scores(frames.cuda()).cpu().numpy()
+    cpu = shots.content_scores(frames).numpy()
+    err = float(np.abs(card - cpu).max())
+    cuts = shots.cuts_from_scores(cpu)
+    bounds = shots.boundaries_from_cuts(cuts, len(frames))
+    print(f"device shot scores on short {tuple(frames.shape)}: card vs CPU "
+          f"max|d| {err:.3e}; {len(cuts)} cuts, the same on both: "
+          f"{shots.cuts_from_scores(card) == cuts}; the native detector's "
+          f"fast path found {len(short_fast.boundaries) - 1}")
+    if (err > SHOT_TOL or shots.cuts_from_scores(card) != cuts
+            or not np.array_equal(classic["short"].boundaries, bounds)):
+        raise AssertionError("the device shot detector disagrees with the "
+                             "CPU's")
+
+
+def run_dataset(tmp: str, pipeline, n_frames: dict, fast_short) -> dict:
+    """Phase 9 on the videos in ``{tmp}/data/videos`` (``n_frames`` by
+    video id) -> the launches of K1 in preprocess and of K2 in evaluate."""
+    import numpy as np
+
+    from avsum_torch.data import FeatureCache
+    from avsum_torch.io.y4m import Y4MReader
+
+    data = f"{tmp}/data"
+    vdir, gt, cache_dir = f"{data}/videos", f"{data}/gt", f"{data}/cache"
+    # seeds whose cuts both shot detectors find with a wide margin
+    for i, seed in enumerate((20, 23, 24)):
+        n_frames[f"scenes{i}"] = _video(f"{vdir}/scenes{i}", 8, 180, 320,
+                                        (30, 75), seed=seed)
+    os.makedirs(gt)
+    for i, (vid, n) in enumerate(sorted(n_frames.items())):
+        _write_summe_gt(f"{gt}/{vid}.mat", n, seed=30 + i)
+    args = ["--config", SUMME_CONFIG, "--device", "cuda"] + [
+        a for x in (f"data.cache_dir={cache_dir}", f"data.annotation_path={gt}",
+                    f"train.checkpoint_dir={data}/ckpt",
+                    f"train.log_path={data}/train.jsonl", "train.epochs=2",
+                    "train.log_every=1")
+        for a in ("--set", x)]
+
+    sweep = _Messages()
+    logging.getLogger("avsum_torch.pipeline").addHandler(sweep)
+    try:
+        pre, _ = run_cli("preprocess", "preprocess", "--input-dir", vdir,
+                         *args)
+    finally:
+        logging.getLogger("avsum_torch.pipeline").removeHandler(sweep)
+    for line in sweep.lines:
+        print(f"preprocess: {line}")
+    cache = FeatureCache(cache_dir)
+    if cache.video_ids() != sorted(n_frames) or pre["melspec"] != len(n_frames):
+        raise AssertionError(f"preprocess cached {cache.video_ids()}, K1 "
+                             f"launched {pre['melspec']} times")
+    for vid in cache.video_ids():
+        ex = cache.get(vid)
+        s = len(ex.shot_boundaries)
+        if (ex.visual.shape != (s, 4096) or ex.audio.shape != (s, 296)
+                or not (np.isfinite(ex.visual).all()
+                        and np.isfinite(ex.audio).all())):
+            raise AssertionError(f"cache entry {vid}: {ex.visual.shape} / "
+                                 f"{ex.audio.shape}")
+    short = cache.get("short")
+    np.testing.assert_array_equal(short.shot_boundaries, fast_short.boundaries)
+    np.testing.assert_allclose(short.visual, fast_short.visual, **FEATURE_TOL)
+    np.testing.assert_allclose(short.audio, fast_short.audio, **FEATURE_TOL)
+    print(f"preprocess: short's entry vs summarize's features max|d| visual "
+          f"{np.abs(short.visual - fast_short.visual).max():.3e}, audio "
+          f"{np.abs(short.audio - fast_short.audio).max():.3e}")
+    again, _ = run_cli("preprocess again", "preprocess", "--input-dir", vdir,
+                       *args)
+    if again["melspec"] != 0:
+        raise AssertionError(f"the second sweep launched K1: {again}")
+
+    check_classic(pipeline, vdir, fast_short)
+
+    splits = f"{data}/splits.json"
+    run_cli("splits", "splits", "--kfold", "--output", splits, *args)
+    run_cli("train", "train", "--splits", splits, "--fold", "0", *args)
+    records = [json.loads(line) for line in open(f"{data}/train.jsonl")]
+    losses = [r["loss"] for r in records if "loss" in r]
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"train on the folds: losses {losses}")
+    print(f"train on fold 0: losses {losses}")
+
+    ev, out = run_cli("evaluate", "evaluate", "--canonical", *args)
+    metrics = json.loads(out.strip().splitlines()[-1])
+    print(f"evaluate --canonical: {json.dumps(metrics)}")
+    keys = {"f1", "spearman", "kendall", "canonical_f1", "n_videos"}
+    finite = all(np.isfinite(metrics.get(k, np.nan)) for k in keys)
+    if (set(metrics) != keys or not finite or metrics["n_videos"] != 5
+            or not 0 <= metrics["f1"] <= 1 or not 0 <= metrics["canonical_f1"] <= 1
+            or not -1 <= metrics["spearman"] <= 1
+            or not -1 <= metrics["kendall"] <= 1 or ev["flash_fwd"] <= 0):
+        raise AssertionError(f"evaluate: {metrics}, launches {ev}")
+
+    summaries = f"{data}/summaries"
+    run_cli("summarize DIR", "summarize", vdir, "--output", summaries,
+            "--checkpoint", f"{data}/ckpt", *args)
+    if sorted(os.listdir(summaries)) != [f"{v}.json" for v in sorted(n_frames)]:
+        raise AssertionError(f"summarize DIR wrote {os.listdir(summaries)}")
+    stem = f"{data}/short_summary"
+    _, out = run_cli("summarize --render", "summarize", f"{vdir}/short.y4m",
+                     "--render", stem, "--checkpoint", f"{data}/ckpt", *args)
+    segments = json.loads(out.strip().splitlines()[-1])["segments"]
+    with Y4MReader(f"{stem}.y4m") as reader:
+        rendered = reader.n_frames
+    want = sum(b - a for a, b in segments)
+    print(f"render: {rendered} frames for {len(segments)} segments of {want} "
+          f"frames, {os.path.getsize(stem + '.wav')} bytes of wav")
+    if rendered != want or not os.path.getsize(f"{stem}.wav"):
+        raise AssertionError("the rendered summary does not match its "
+                             "segments")
+    return {"melspec": pre["melspec"], "flash_fwd": ev["flash_fwd"]}
 
 
 def main() -> int:
@@ -787,9 +1034,11 @@ def main() -> int:
     cfg = load_config(TVSUM_CONFIG)
     budget = cfg.summary.budget_fraction
     with tempfile.TemporaryDirectory() as tmp:
-        short, many = f"{tmp}/short", f"{tmp}/many"
-        _video(short, 12, 360, 640, (24, 90), seed=5)
-        _video(many, 540, 72, 96, (30, 40), seed=6)
+        vdir = f"{tmp}/data/videos"
+        os.makedirs(vdir)
+        short, many = f"{vdir}/short", f"{vdir}/many"
+        n_frames = {"short": _video(short, 12, 360, 640, (24, 90), seed=5),
+                    "many": _video(many, 540, 72, 96, (30, 40), seed=6)}
         t0 = time.perf_counter()
         pipeline, model = build_pipeline(cfg, "cuda", seed=0)
         print(f"random weights on the card in {time.perf_counter() - t0:.1f} s")
@@ -798,7 +1047,8 @@ def main() -> int:
                                            budget)
         if n_short["melspec"] <= 0:
             raise AssertionError("K1 did not run on the short video")
-        check_against_cpu(pipeline, model, f"{short}.y4m", res_short)
+        fast_short = check_against_cpu(pipeline, model, f"{short}.y4m",
+                                       res_short)
 
         res_many, n_many = run_summarize(pipeline, model, f"{many}.y4m",
                                          budget)
@@ -811,6 +1061,7 @@ def main() -> int:
                 f"padded S {s_pad}: the long video did not run both "
                 f"kernels ({n_many})")
         n_train = run_train(tmp)
+        n_data = run_dataset(tmp, pipeline, n_frames, fast_short)
 
     k1 = check_k1(k1_samples)
     k2 = check_k2(s_pad)
@@ -821,12 +1072,13 @@ def main() -> int:
         {"name": "melspec", "route": "cuda",
          "source": "avsum_torch/csrc/melspec.cu",
          "replaces": "avsum_tpu/ops/pallas_melspec.py:39",
-         "launches": n_short["melspec"] + n_many["melspec"], **k1},
+         "launches": (n_short["melspec"] + n_many["melspec"]
+                      + n_data["melspec"]), **k1},
         {"name": "flash_fwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_fwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:42",
          "launches": (n_short["flash_fwd"] + n_many["flash_fwd"]
-                      + n_train["flash_fwd"]), **k2},
+                      + n_train["flash_fwd"] + n_data["flash_fwd"]), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:173",

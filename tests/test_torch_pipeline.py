@@ -2,9 +2,10 @@
 6-scene synthetic y4m + wav: both ``AVPipeline``s with the same weights
 (tiny backbone, VGGish and a hidden-64 BiLSTM scorer, all float32,
 converted from JAX). Boundaries and segments must be equal; features and
-scores agree within 1e-4. Also: the summarize slice and the train CLI
-run with ``avsum_tpu``, jax, flax and optax unimportable, and the CLI
-prints the JAX CLI's JSON keys."""
+scores agree within 1e-4. Also: the summarize slice, the train CLI and
+the dataset path (preprocess, train, evaluate --canonical) run with
+``avsum_tpu``, jax, flax and optax unimportable, and the CLI prints the
+JAX CLI's JSON keys."""
 
 import json
 import os
@@ -167,6 +168,50 @@ def test_train_runs_without_jax(tmp_path):
     last = json.loads(res.stdout.strip().splitlines()[-1])
     assert last["step"] == 2 and last["loss"] >= 0.0
     assert os.path.isdir(tmp_path / "ckpt" / "2")
+
+
+NO_JAX_DATASET = BLOCK + """
+import numpy as np, scipy.io
+from avsum_torch import build
+from avsum_torch.cli.main import main
+from avsum_torch.io import write_scene_video
+build.ensure_native_io = lambda: None  # the prebuilt decoder serves
+tmp = sys.argv[1]
+rng = np.random.default_rng(3)
+import os
+os.makedirs(tmp + "/videos"); os.makedirs(tmp + "/gt")
+for i in range(3):
+    n = write_scene_video(f"{tmp}/videos/v{i}", n_scenes=3, seed=i, height=48,
+                          width=64)[-1][1]
+    users = (rng.random((n, 5)) < 0.2).astype(np.float32)
+    scipy.io.savemat(f"{tmp}/gt/v{i}.mat", {"gt_score": users.mean(1),
+                     "user_score": users, "nFrames": n, "FPS": 30.0})
+sets = [a for s in sys.argv[2:] + [
+    "data.dataset=summe", "data.annotation_path=" + tmp + "/gt",
+    "data.cache_dir=" + tmp + "/cache", "data.max_shots=4",
+    "data.batch_videos=2", "model.hidden_dim=16", "model.num_heads=2",
+    "model.scorer_hidden=8", "train.epochs=1",
+    "train.checkpoint_dir=" + tmp + "/ckpt",
+    "train.log_path=" + tmp + "/log.jsonl"] for a in ("--set", s)]
+assert main(["preprocess", "--device", "cpu", "--input-dir",
+             tmp + "/videos", *sets]) == 0
+assert main(["train", "--device", "cpu", *sets]) == 0
+assert main(["evaluate", "--device", "cpu", "--canonical", *sets]) == 0
+""" + NOT_LOADED
+
+
+@needs_native
+def test_dataset_path_runs_without_jax(tmp_path):
+    """preprocess, train and evaluate --canonical through the CLI."""
+    res = subprocess.run(
+        [sys.executable, "-c", NO_JAX_DATASET, str(tmp_path), *SLICE],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(out) == {"f1", "spearman", "kendall", "canonical_f1",
+                        "n_videos"}
+    assert out["n_videos"] == 3 and 0.0 <= out["canonical_f1"] <= 1.0
 
 
 @needs_native

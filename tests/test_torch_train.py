@@ -200,10 +200,19 @@ def _videos(n=8, seed=0):
                                  audio_dim=8, seed=seed)
 
 
+def test_trainer_defaults_to_the_card():
+    """An entry point of the port runs on the card unless asked not to."""
+    import inspect
+
+    default = inspect.signature(Trainer).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+
+
 def test_loss_decreases_on_synthetic_data(tmp_path):
     cfg = _tiny_config(tmp_path, "train.epochs=10")
     vids = _videos()
-    trainer = Trainer(make_model(cfg.model), cfg, total_steps=200)
+    trainer = Trainer(make_model(cfg.model), cfg, total_steps=200,
+                      device="cpu")
     trainer.init_state()
     losses = []
     for epoch in range(10):
@@ -223,14 +232,15 @@ def test_ema_weight_averaging(tmp_path):
         return batch_iterator(vids, 2, 24, seed=epoch)
 
     off = Trainer(make_model(_tiny_config(tmp_path).model),
-                  _tiny_config(tmp_path / "off", "train.epochs=2"))
+                  _tiny_config(tmp_path / "off", "train.epochs=2"),
+                  device="cpu")
     off.fit(batches)
     assert off.state.ema is None
     assert off.eval_params == dict(off.model.named_parameters())
 
     on = Trainer(make_model(_tiny_config(tmp_path).model),
                  _tiny_config(tmp_path / "on", "train.epochs=2",
-                              "train.ema_decay=0.9"))
+                              "train.ema_decay=0.9"), device="cpu")
     on.fit(batches)
     assert on.eval_params is on.state.ema
     raw = dict(on.model.named_parameters())
@@ -245,7 +255,7 @@ def test_ema_weight_averaging(tmp_path):
 
 def test_score_video_past_the_bucket(tmp_path):
     cfg = _tiny_config(tmp_path)
-    trainer = Trainer(make_model(cfg.model), cfg)
+    trainer = Trainer(make_model(cfg.model), cfg, device="cpu")
     trainer.init_state()
     long = make_synthetic_videos(1, min_shots=70, max_shots=70, visual_dim=16,
                                  audio_dim=8, seed=2)[0]
@@ -267,13 +277,15 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
     cfg = _tiny_config(tmp_path / "a", "train.epochs=2",
                        "train.keep_checkpoints=1")
-    first = Trainer(make_model(cfg.model, seed=1), cfg, total_steps=8)
+    first = Trainer(make_model(cfg.model, seed=1), cfg, total_steps=8,
+                    device="cpu")
     first.fit(batches)
     ckpt = CheckpointManager(cfg.train.checkpoint_dir)
     assert ckpt.steps() == [4] and first.state.step == 4
 
     cfg4 = _tiny_config(tmp_path / "a", "train.epochs=4")
-    resumed = Trainer(make_model(cfg4.model, seed=9), cfg4, total_steps=8)
+    resumed = Trainer(make_model(cfg4.model, seed=9), cfg4, total_steps=8,
+                      device="cpu")
     resumed.init_state()
     assert resumed.maybe_restore() == 4
     assert resumed.last_meta == {"epoch": 1}
@@ -284,7 +296,7 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
     straight_cfg = _tiny_config(tmp_path / "b", "train.epochs=4")
     straight = Trainer(make_model(straight_cfg.model, seed=1), straight_cfg,
-                       total_steps=8)
+                       total_steps=8, device="cpu")
     straight.fit(batches)
     assert resumed.state.step == straight.state.step == 8
     for k, v in straight.model.state_dict().items():
@@ -404,7 +416,7 @@ def test_evaluate_videos_averages_per_video_metrics(tmp_path):
     from avsum_torch.summary.metrics import evaluate_scores
 
     cfg = _tiny_config(tmp_path)
-    trainer = Trainer(make_model(cfg.model, seed=2), cfg)
+    trainer = Trainer(make_model(cfg.model, seed=2), cfg, device="cpu")
     trainer.init_state()
     vids = _videos(5, seed=4)
     vids[0].visual = vids[0].visual[:1]  # one valid shot: left out
