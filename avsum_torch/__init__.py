@@ -23,15 +23,19 @@ Layout (mirrors ``avsum_tpu``):
 - ``models/``    self-attention, BiLSTM, the attention encoder, the AVScorer
 - ``temporal/``  host shot-boundary helpers, shot <-> annotation alignment
   (numpy)
-- ``summary/``   knapsack selection and evaluation metrics (numpy)
+- ``summary/``   knapsack selection (numpy; a torch DP on the device for
+  large problems), evaluation metrics, the canonical protocol, render
 - ``io/``        video and audio decode, the native Y4M decoder, synthetic
   media (numpy, ctypes)
 - ``data/``      the feature cache, batching, splits, dataset parsers
 - ``train/``     train / eval steps and the optax optimizer, checkpoints,
   the trainer
-- ``utils/``     the JSONL scalar logger
-- ``pipeline.py``  ``AVPipeline.summarize``
-- ``cli/``       ``python -m avsum_torch.cli summarize VIDEO`` and ``train``
+- ``utils/``     the JSONL scalar logger, pinned and asynchronous
+  host <-> device copies
+- ``pipeline.py``  ``AVPipeline``: summarize (begin / finish), preprocess
+- ``serve/``     the HTTP summarization service and the scorer's export
+- ``cli/``       ``python -m avsum_torch.cli summarize VIDEO``, ``train``,
+  ``serve``, ``export`` and the dataset commands
 - ``convert.py`` Flax param trees -> state_dicts
 """
 

@@ -27,6 +27,7 @@ from avsum_torch.models.attention import kernel_enabled
 from avsum_torch.ops.melspec import fused_log_mel
 from avsum_torch.ops.spectral import amplitude_to_db, dct_matrix, mel_spectrogram
 from avsum_torch.train.config import AudioFeatConfig
+from avsum_torch.utils.transfer import to_device
 
 VGGISH_BATCH = 256  # patches per VGGish call (bounds activation memory)
 
@@ -40,8 +41,8 @@ def segment_means(features: torch.Tensor, start: np.ndarray,
                     torch.cumsum(features.float(), dim=0)])
     s = np.clip(start.astype(np.int32), 0, t - 1)
     e = np.clip(end.astype(np.int32), s + 1, t)
-    s_t = torch.from_numpy(s.astype(np.int64)).to(features.device)
-    e_t = torch.from_numpy(e.astype(np.int64)).to(features.device)
+    se = to_device(np.stack([s, e]).astype(np.int64), features.device)
+    s_t, e_t = se[0], se[1]
     total = cs[e_t] - cs[s_t]
     return total / (e_t - s_t).float()[:, None]
 
@@ -68,18 +69,19 @@ class AudioFrontend:
         self.vggish = vggish.to(self.device).eval()
 
     @torch.inference_mode()
-    def full_features(self, waveform) -> Tuple[torch.Tensor, ...]:
+    def dispatch_full(self, waveform) -> Tuple[torch.Tensor, ...]:
         """[T] int16 or float waveform -> (mfcc [N, 40], log-mel [N, n_mels],
-        vggish [P, 128]) on the device. The waveform is zero-padded to a
-        power-of-two length first, as the JAX package buckets it; int16
-        samples are scaled by 1/32768 on the device."""
+        vggish [P, 128]) on the device, enqueued without waiting for it.
+        The waveform is zero-padded to a power-of-two length first, as the
+        JAX package buckets it; int16 samples go up as they are and are
+        scaled by 1/32768 on the device."""
         cfg = self.config
         wave = np.asarray(waveform).reshape(-1)
         if wave.dtype != np.int16:
             wave = wave.astype(np.float32)
         t = max(len(wave), cfg.sample_rate)
         wave = np.pad(wave, (0, (1 << (t - 1).bit_length()) - len(wave)))
-        x = torch.from_numpy(wave).to(self.device)
+        x = to_device(wave, self.device)
         x = x.float() * (1.0 / 32768.0) if x.dtype == torch.int16 else x
         if self.use_kernel:
             mel, lm = fused_log_mel(
@@ -103,8 +105,16 @@ class AudioFrontend:
         return mf, lm, vg
 
     @torch.inference_mode()
-    def pool(self, full, boundaries_samples: np.ndarray) -> torch.Tensor:
-        """Pool full-waveform streams over [S, 2] sample bounds -> [S, 296].
+    def pool(self, full, boundaries_samples: np.ndarray, mask=None,
+             s_bucket: Optional[int] = None,
+             return_device: bool = False) -> torch.Tensor:
+        """Pool full-waveform streams over [S, 2] sample bounds -> [S, 296]
+        on the device, rows times ``mask`` ([S], default ones).
+
+        ``s_bucket`` pads the shot axis to that many rows (zero rows past
+        S): the device-resident scoring passes the scorer's padded S so
+        both modalities share it; ``return_device`` returns all
+        ``s_bucket`` rows instead of the first S.
 
         Bounds become row indices in float32 as XLA computes them for the
         JAX package: a division by a constant is a multiplication by its
@@ -112,15 +122,24 @@ class AudioFrontend:
         (153600 / 15360) can round up to the next row there, and here."""
         mf, lm, vg = full
         bounds = np.asarray(boundaries_samples, np.float32).reshape(-1, 2)
-        mf_s = bounds * np.float32(1.0 / self.config.hop_length)
-        vg_s = bounds * np.float32(1.0 / (VGGISH_HOP * VGGISH_FRAMES))
+        s = len(bounds)
+        s_bucket = s if s_bucket is None else s_bucket
+        if s_bucket < s:
+            raise ValueError(f"s_bucket {s_bucket} < {s} shots")
+        bounds_p = np.zeros((s_bucket, 2), np.float32)
+        bounds_p[:s] = bounds
+        mask_p = np.zeros(s_bucket, np.float32)
+        mask_p[:s] = 1.0 if mask is None else np.asarray(mask, np.float32).reshape(-1)
+        mf_s = bounds_p * np.float32(1.0 / self.config.hop_length)
+        vg_s = bounds_p * np.float32(1.0 / (VGGISH_HOP * VGGISH_FRAMES))
         mf_end = np.ceil(mf_s[:, 1])
-        return torch.cat([
+        out = torch.cat([
             segment_means(mf, mf_s[:, 0], mf_end),
             segment_means(lm, mf_s[:, 0], mf_end),
             segment_means(vg, vg_s[:, 0], np.ceil(vg_s[:, 1])),
-        ], dim=-1)
+        ], dim=-1) * to_device(mask_p, mf.device)[:, None]
+        return out if return_device else out[:s]
 
     def shot_features(self, waveform, boundaries_samples) -> torch.Tensor:
         """[T] waveform + [S, 2] (start, end) sample bounds -> [S, 296]."""
-        return self.pool(self.full_features(waveform), boundaries_samples)
+        return self.pool(self.dispatch_full(waveform), boundaries_samples)

@@ -1,18 +1,19 @@
 """The port's CLI (``avsum_tpu/cli/main.py``): ``preprocess``, ``splits``,
-``train``, ``evaluate`` and ``summarize``, with the JAX CLI's JSON keys.
-Every command runs on ``--device`` (default ``cuda``).
+``train``, ``evaluate``, ``summarize``, ``serve`` and ``export``, with the
+JAX CLI's JSON keys. Every command runs on ``--device`` (default
+``cuda``).
 
 ``python -m avsum_torch.cli summarize VIDEO``. Weights: ``--weights
 FILE.pt`` holds a dict of state_dicts under "scorer", "visual" and
-"vggish" (made by :mod:`avsum_torch.convert`); a part it lacks, and every
-part with ``--random-init``, is drawn from ``--seed``. ``--checkpoint
-DIR`` takes the scorer's parameters from the port's latest training
-checkpoint there. Without any of them there is no scorer and every shot
-scores 1, as in the JAX CLI without ``--checkpoint``. ``summarize DIR``
-writes one ``<video_id>.json`` per ``.y4m`` / ``.mp4`` into ``--output``
-(default ``summaries``); ``--render STEM`` also writes the summary's
-media to ``STEM.y4m`` + ``STEM.wav``, or to one mp4 when STEM ends in
-``.mp4``.
+"vggish" (made by ``python -m avsum_torch.convert --params/--visual/
+--vggish``); a part it lacks, and every part with ``--random-init``, is
+drawn from ``--seed``. ``--checkpoint DIR`` takes the scorer's parameters
+from the port's latest training checkpoint there. Without any of them
+there is no scorer and every shot scores 1, as in the JAX CLI without
+``--checkpoint``. ``summarize DIR`` writes one ``<video_id>.json`` per
+``.y4m`` / ``.mp4`` into ``--output`` (default ``summaries``);
+``--render STEM`` also writes the summary's media to ``STEM.y4m`` +
+``STEM.wav``, or to one mp4 when STEM ends in ``.mp4``.
 
 ``python -m avsum_torch.cli preprocess --input-dir DIR --cache-dir C``:
 every video of DIR into the feature cache, with the backbone and VGGish
@@ -33,6 +34,15 @@ none) on the fold's test videos (every cached video without
 ``--splits``); prints one JSON line of f1, spearman and kendall, plus
 canonical_f1 and n_videos with ``--canonical`` (the per-annotator
 knapsack F1 of :mod:`avsum_torch.summary.protocol`).
+
+``python -m avsum_torch.cli serve [--port P]``: the HTTP service of
+:mod:`avsum_torch.serve.server` (POST /v1/summarize, /v1/summarize/upload,
+GET /healthz, /readyz, /v1/stats), with the scorer from ``--weights``,
+``--checkpoint``, ``--random-init`` or an exported ``--artifact``; it
+drains its queue and exits on SIGTERM. ``python -m avsum_torch.cli export
+--output F (--checkpoint DIR | --weights W.pt | --random-init)`` writes the
+scorer as a ``torch.export`` artifact on ``--device``
+(:mod:`avsum_torch.serve.export`).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import json
 import logging
 import os
 import sys
+import time
 from typing import List, Optional
 
 import torch
@@ -58,7 +69,6 @@ def build_pipeline(cfg: Config, device: str, seed: int = 0,
     from avsum_torch.audio.frontend import AudioFrontend
     from avsum_torch.audio.vggish import VGGish
     from avsum_torch.init import fast_init_
-    from avsum_torch.models.scorer import make_model
     from avsum_torch.pipeline import AVPipeline
     from avsum_torch.vision.backbone import DTYPES, VisualFrontend, make_backbone
 
@@ -66,8 +76,9 @@ def build_pipeline(cfg: Config, device: str, seed: int = 0,
     backbone = make_backbone(cfg.visual, seed, weights.get("visual"))
     if cfg.audio.vggish_weights:
         raise ValueError(
-            "audio.vggish_weights holds a JAX param file; convert it with "
-            "avsum_torch.convert and pass it under --weights")
+            "audio.vggish_weights holds a JAX param file: write its params "
+            "to G.npz (README.md) and run `python -m avsum_torch.convert "
+            "--vggish G.npz --out w.pt`, then pass --weights w.pt")
     vggish = VGGish(DTYPES[cfg.audio.dtype])
     if "vggish" in weights:
         vggish.load_state_dict(weights["vggish"])
@@ -78,9 +89,16 @@ def build_pipeline(cfg: Config, device: str, seed: int = 0,
                                         use_pallas=cfg.audio.use_pallas))
     model = None
     if with_scorer:
-        model = make_model(cfg.model, seed + 2, weights.get("scorer"))
-        model = model.to(device)
+        model = make_scorer(cfg, seed, weights.get("scorer")).to(device)
     return pipeline, model
+
+
+def make_scorer(cfg: Config, seed: int = 0, state: Optional[dict] = None):
+    """The scorer with the ``state`` dict's weights or, without one, those
+    ``--seed`` draws in every command (summarize, serve, export)."""
+    from avsum_torch.models.scorer import make_model
+
+    return make_model(cfg.model, seed + 2, state)
 
 
 def summary_json(result: dict) -> dict:
@@ -93,18 +111,32 @@ def summary_json(result: dict) -> dict:
     }
 
 
-def _media_setup(args) -> dict:
-    """The native decoder built, TF32 off on the card (float32 products
-    stay float32, the port's parity setting) -> the ``--weights`` dict."""
-    from avsum_torch.build import ensure_native_io
-
-    ensure_native_io()
+def _device_setup(args) -> dict:
+    """TF32 off on the card (float32 products stay float32, the port's
+    parity setting) -> the ``--weights`` dict."""
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     if not args.weights:
         return {}
     return torch.load(args.weights, map_location="cpu", weights_only=True)
+
+
+def _media_setup(args) -> dict:
+    """The native decoder built, then :func:`_device_setup`."""
+    from avsum_torch.build import ensure_native_io
+
+    ensure_native_io()
+    return _device_setup(args)
+
+
+def _checkpoint_scorer(path: str) -> Optional[dict]:
+    """The scorer's state_dict from the latest training checkpoint in
+    ``path``, or None when there is none."""
+    from avsum_torch.train.checkpoint import CheckpointManager
+
+    payload, _ = CheckpointManager(path).load()
+    return None if payload is None else payload["model"]
 
 
 def cmd_preprocess(args) -> int:
@@ -149,13 +181,11 @@ def cmd_summarize(args) -> int:
     cfg = load_config(args.config, args.overrides)
     weights = _media_setup(args)
     if args.checkpoint:
-        from avsum_torch.train.checkpoint import CheckpointManager
-
-        payload, _ = CheckpointManager(args.checkpoint).load()
-        if payload is None:
+        scorer = _checkpoint_scorer(args.checkpoint)
+        if scorer is None:
             print(f"no checkpoint in {args.checkpoint}", file=sys.stderr)
             return 1
-        weights = {**weights, "scorer": payload["model"]}
+        weights = {**weights, "scorer": scorer}
     pipeline, model = build_pipeline(
         cfg, args.device, args.seed, weights,
         with_scorer=args.random_init or "scorer" in weights)
@@ -280,14 +310,15 @@ def cmd_evaluate(args) -> int:
     metrics = trainer.evaluate_videos(batch_iterator(
         examples, cfg.data.batch_videos, cfg.data.max_shots, shuffle=False))
     if args.canonical:
-        metrics.update(_canonical_eval(cfg, trainer, examples))
+        metrics.update(_canonical_eval(cfg, trainer, examples, args.device))
     print(json.dumps(metrics))
     return 0
 
 
-def _canonical_eval(cfg: Config, trainer, examples) -> dict:
+def _canonical_eval(cfg: Config, trainer, examples, device: str) -> dict:
     """Canonical per-annotator knapsack F1 (summary/protocol.py) over the
-    examples that have annotations; every shot of a video is scored."""
+    examples that have annotations; every shot of a video is scored, and
+    a knapsack of 5e7 DP cells or more runs on ``device``."""
     from avsum_torch.summary.protocol import evaluate_canonical
 
     if cfg.data.dataset == "tvsum":
@@ -313,7 +344,64 @@ def _canonical_eval(cfg: Config, trainer, examples) -> dict:
                user_key: users(ex.video_id)}
               for ex in examples if ex.video_id in anno]
     return evaluate_canonical(videos, cfg.data.dataset,
-                              cfg.summary.budget_fraction)
+                              cfg.summary.budget_fraction, device)
+
+
+def cmd_serve(args) -> int:
+    from avsum_torch.serve import ServeConfig, SummarizeServer
+    from avsum_torch.serve.export import load_scorer
+
+    cfg = load_config(args.config, args.overrides)
+    weights = _media_setup(args)
+    if args.checkpoint:
+        scorer = _checkpoint_scorer(args.checkpoint)
+        if scorer is None:
+            log.error("no checkpoint in %s", args.checkpoint)
+            return 1
+        weights = {**weights, "scorer": scorer}
+    pipeline, model = build_pipeline(
+        cfg, args.device, args.seed, weights,
+        with_scorer=(args.random_init or "scorer" in weights)
+        and not args.artifact)
+    if args.artifact:  # the exported program, its weights inside
+        model = load_scorer(args.artifact, args.device)
+    server = SummarizeServer(pipeline, ServeConfig(
+        host=args.host, port=args.port, warmup=not args.no_warmup,
+        access_log=args.access_log or "", media_root=args.media_root or "",
+        max_queue=args.max_queue, request_timeout_s=args.request_timeout,
+        max_upload_mb=args.max_upload_mb), model=model)
+    server.start(block=True)
+    return 0
+
+
+def cmd_export(args) -> int:
+    from avsum_torch.serve.export import export_scorer
+
+    cfg = load_config(args.config, args.overrides)
+    weights = _device_setup(args)
+    if args.checkpoint:
+        state = _checkpoint_scorer(args.checkpoint)
+        if state is None:
+            log.error("no checkpoint in %s", args.checkpoint)
+            return 1
+    elif "scorer" in weights:
+        state = weights["scorer"]
+    elif args.random_init:
+        state = None
+        log.warning("exporting RANDOM-INIT weights (--random-init)")
+    else:
+        log.error("pass --checkpoint DIR, --weights FILE.pt with a scorer, "
+                  "or --random-init")
+        return 1
+    t0 = time.perf_counter()
+    blob = export_scorer(make_scorer(cfg, args.seed, state),
+                         cfg.model.visual_dim, cfg.model.audio_dim,
+                         device=args.device)
+    with open(args.output, "wb") as fh:
+        fh.write(blob)
+    log.info("wrote %s (%d bytes, exported in %.2f s)", args.output,
+             len(blob), time.perf_counter() - t0)
+    return 0
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -379,6 +467,55 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="also write the summary media to OUT_STEM.y4m/.wav, "
                         "or to one mp4 when OUT_STEM ends in .mp4")
     p.set_defaults(fn=cmd_summarize)
+
+    p = sub.add_parser("serve", help="run the HTTP summarization service")
+    _add_common(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    w = p.add_mutually_exclusive_group()
+    w.add_argument("--weights", default=None,
+                   help="torch file of state_dicts (avsum_torch.convert)")
+    w.add_argument("--random-init", action="store_true",
+                   help="draw every weight, the scorer's too, from --seed")
+    p.add_argument("--seed", type=int, default=0)
+    s = p.add_mutually_exclusive_group()
+    s.add_argument("--checkpoint", default=None, metavar="DIR",
+                   help="the scorer from this training checkpoint dir")
+    s.add_argument("--artifact", default=None, metavar="FILE",
+                   help="score with an exported scorer (export) instead of "
+                        "the model code")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the synthetic warmup clip before readiness")
+    p.add_argument("--access-log", default=None, metavar="PATH",
+                   help="JSONL access log (one line per summarize request)")
+    p.add_argument("--media-root", default=None, metavar="DIR",
+                   help="only serve media under this directory (403 "
+                        "outside it); use it for a non-loopback --host")
+    p.add_argument("--max-queue", type=int, default=64,
+                   help="queued requests beyond this get 429 (0: no bound)")
+    p.add_argument("--request-timeout", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="per-request wall-clock budget (504 past it; 0: none)")
+    p.add_argument("--max-upload-mb", type=int, default=512,
+                   help="largest body for POST /v1/summarize/upload (413 "
+                        "beyond; 0 disables uploads)")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("export", help="export the scorer as a torch.export "
+                                      "artifact (weights inside, symbolic "
+                                      "batch and shot axes)")
+    _add_common(p)
+    w = p.add_mutually_exclusive_group()
+    w.add_argument("--checkpoint", default=None, metavar="DIR",
+                   help="the scorer from this training checkpoint dir")
+    w.add_argument("--weights", default=None,
+                   help="torch file of state_dicts with a scorer")
+    w.add_argument("--random-init", action="store_true",
+                   help="the scorer summarize --random-init draws from "
+                        "--seed")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output", required=True)
+    p.set_defaults(fn=cmd_export)
 
     args = ap.parse_args(argv)
     logging.basicConfig(

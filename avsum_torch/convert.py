@@ -14,12 +14,16 @@ state_dicts. The inverse of ``avsum_tpu/vision/port_torch.py`` and
   ``MultiHeadSelfAttention_0`` -> ``attention`` and ``Dense_{0,1}`` ->
   ``dense_{0,1}``.
 
-``python -m avsum_torch.convert --params FILE.npz --out FILE.pt`` turns a
-JAX scorer's parameters, saved as numpy arrays under their ``/``-joined
-Flax paths (``visual_fc/Dense_0/kernel``, ...), into ``{"scorer":
-state_dict}`` for ``avsum_torch.cli summarize --weights FILE.pt``. The
-``.npz`` is written where JAX is installed (README.md gives the lines);
-this module imports no JAX.
+``python -m avsum_torch.convert --params S.npz --visual V.npz --vggish
+G.npz --out FILE.pt`` turns JAX weights, saved as numpy arrays under
+their ``/``-joined Flax paths, into a dict of state_dicts for
+``avsum_torch.cli summarize --weights FILE.pt`` (and ``preprocess``,
+``serve``, ``export``): ``--params`` the scorer's params
+(``visual_fc/Dense_0/kernel``, ...) under "scorer", ``--visual`` the
+backbone's variables (``params/...`` and ``batch_stats/...``; the dual or
+the tiny backbone) under "visual", ``--vggish`` VGGish's params under
+"vggish". At least one is needed. The ``.npz`` files are written where
+JAX is installed (README.md gives the lines); this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -176,18 +180,45 @@ def unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
     return tree
 
 
+TINY_BACKBONE_MODULES = {"Conv_0", "Conv_1", "Dense_0"}
+
+
+def backbone_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The tiny or the dual backbone's variables, told apart by their
+    top-level module names -> state_dict."""
+    if set(variables.get("params", {})) <= TINY_BACKBONE_MODULES:
+        return tiny_backbone_from_flax(variables)
+    return dual_backbone_from_flax(variables)
+
+
+def _load_npz(path: str) -> Dict:
+    with np.load(path) as npz:
+        return unflatten({name: npz[name] for name in npz.files})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="convert a JAX scorer's parameters to a torch state_dict")
-    ap.add_argument("--params", required=True,
-                    help=".npz of the scorer's params under their /-joined "
-                         "Flax paths")
+        description="convert JAX weights (.npz of /-joined Flax paths) to "
+                    "a torch file of state_dicts")
+    ap.add_argument("--params", default=None,
+                    help="the scorer's params")
+    ap.add_argument("--visual", default=None,
+                    help="the visual backbone's variables (params/... and "
+                         "batch_stats/...)")
+    ap.add_argument("--vggish", default=None, help="VGGish's params")
     ap.add_argument("--out", required=True, help="output .pt file")
     args = ap.parse_args(argv)
-    with np.load(args.params) as npz:
-        params = unflatten({name: npz[name] for name in npz.files})
-    torch.save({"scorer": scorer_from_flax(params)}, args.out)
-    print(f"wrote {args.out}")
+    parts = {}
+    if args.params:
+        parts["scorer"] = scorer_from_flax(_load_npz(args.params))
+    if args.visual:
+        parts["visual"] = backbone_from_flax(_load_npz(args.visual))
+    if args.vggish:
+        parts["vggish"] = vggish_from_flax(_load_npz(args.vggish))
+    if not parts:
+        ap.error("give at least one of --params, --visual, --vggish")
+    torch.save(parts, args.out)
+    print(f"wrote {args.out} ({', '.join(parts)})")
     return 0
 
 

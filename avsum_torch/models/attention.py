@@ -2,10 +2,12 @@
 
 Same dispatch rule as the JAX module: with the kernel enabled
 (``use_kernel``, resolved from ``model.use_pallas`` by :func:`kernel_enabled`)
-a sequence of at least ``FLASH_MIN_SEQ`` positions goes through
+a sequence of a concrete length of at least ``FLASH_MIN_SEQ`` positions
+goes through
 :func:`avsum_torch.ops.attention.flash_attention` (kernels K2, B3 and B4 on
-a CUDA tensor; its plain version on a CPU tensor). Shorter sequences, and
-every sequence with the kernel disabled, take the inline materialized
+a CUDA tensor; its plain version on a CPU tensor). Shorter sequences, a
+symbolic length (``torch.export``), and every sequence with the kernel
+disabled, take the inline materialized
 softmax, which is also the math of the JAX package's chunked attention
 (``model.chunk_size`` only bounds its memory there). Logits and softmax
 are float32 whatever the compute dtype.
@@ -63,7 +65,9 @@ class MultiHeadSelfAttention(nn.Module):
         d = e // h
         qkv = self.qkv(x.to(self.dtype)).view(b, s, 3, h, d)
         q, k, v = qkv.unbind(2)  # [B, S, H, D] strided views
-        if self.use_kernel and s >= FLASH_MIN_SEQ:
+        # a symbolic S (torch.export) takes the materialized softmax, as
+        # the JAX package's exported artifact does
+        if self.use_kernel and isinstance(s, int) and s >= FLASH_MIN_SEQ:
             ctx = flash_attention(q, k, v, mask)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())

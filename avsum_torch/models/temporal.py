@@ -2,8 +2,10 @@
 (``:31-104``) and the attention encoder (``:107-170,309-318``).
 
 BiLSTM: the recurrence is a Python loop over time steps (the JAX
-package's ``lax.scan``). Gate order i, f, g, o; one bias; state frozen
-across masked steps; the reverse direction walks from the last step.
+package's ``lax.scan``); while ``torch.export`` traces it with a symbolic
+shot axis it is ``torch._higher_order_ops.scan`` over the same step. Gate
+order i, f, g, o; one bias; state frozen across masked steps; the reverse
+direction walks from the last step.
 Parameters keep the JAX layout: ``wi`` [F, 4H], ``wh`` [H, 4H], ``b`` [4H].
 
 Attention encoder: sinusoidal positions ([sin | cos], an odd width
@@ -75,17 +77,36 @@ class LSTMCellScan(nn.Module):
              if mask is None else mask.to(self.dtype)[..., None])
         h = torch.zeros(b, self.hidden, dtype=self.dtype, device=x.device)
         c = torch.zeros_like(h)
+        if torch.compiler.is_exporting():
+            # a symbolic S cannot unroll the loop: the scan operator walks
+            # it inside the exported program
+            from torch._higher_order_ops import scan
+
+            def step(carry, inputs):  # scan's outputs may not alias
+                carry, h_t = self._step(carry, inputs)
+                return carry, h_t.clone()
+
+            _, hs = scan(step, (h, c),
+                         (xw.transpose(0, 1), m.transpose(0, 1)),
+                         reverse=self.reverse)
+            return hs.transpose(0, 1)
         hs = [None] * s
         for t in (range(s - 1, -1, -1) if self.reverse else range(s)):
-            gates = xw[:, t] + (h @ self.wh).to(self.dtype)
-            i, f, g, o = gates.chunk(4, dim=-1)
-            c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h_new = torch.sigmoid(o) * torch.tanh(c_new)
-            mt = m[:, t]
-            h = mt * h_new + (1 - mt) * h
-            c = mt * c_new + (1 - mt) * c
-            hs[t] = h
+            (h, c), hs[t] = self._step((h, c), (xw[:, t], m[:, t]))
         return torch.stack(hs, dim=1)
+
+    def _step(self, carry, inputs):
+        """One time step: ((h, c), (x @ wi + b, mask)) -> ((h, c), h);
+        the state stays frozen across a masked step."""
+        h, c = carry
+        xw_t, m_t = inputs
+        gates = xw_t + (h @ self.wh).to(self.dtype)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        h = m_t * h_new + (1 - m_t) * h
+        c = m_t * c_new + (1 - m_t) * c
+        return (h, c), h
 
 
 class BiLSTM(nn.Module):

@@ -51,6 +51,13 @@ def _dft_bases(n_fft: int) -> tuple:
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _dft_bases_on(n_fft: int, device) -> tuple:
+    """:func:`_dft_bases` on ``device``, uploaded once per device (an
+    upload on every call would wait for the device's queue)."""
+    return tuple(torch.from_numpy(b).to(device) for b in _dft_bases(n_fft))
+
+
 def power_spectrogram(
     waveform: torch.Tensor,
     n_fft: int = 400,
@@ -66,8 +73,7 @@ def power_spectrogram(
         lpad = (n_fft - win_length) // 2
         window = F.pad(window, (lpad, n_fft - win_length - lpad))
     frames = frames * window
-    cos_b, sin_b = (torch.from_numpy(b).to(frames.device)
-                    for b in _dft_bases(n_fft))
+    cos_b, sin_b = _dft_bases_on(n_fft, frames.device)
     real = frames @ cos_b
     imag = frames @ sin_b
     return real * real + imag * imag
@@ -97,6 +103,7 @@ def _mel_fbank_np(
     return fb.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
 def mel_filterbank(
     n_freqs: int,
     n_mels: int = 128,
@@ -139,6 +146,7 @@ def _dct_matrix_np(n_mfcc: int, n_mels: int) -> np.ndarray:
     return dct.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
 def dct_matrix(n_mfcc: int, n_mels: int, device=None) -> torch.Tensor:
     return torch.from_numpy(_dct_matrix_np(n_mfcc, n_mels)).to(device)
 

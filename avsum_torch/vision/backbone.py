@@ -20,19 +20,30 @@ from torch import nn
 from avsum_torch.init import fast_init_
 from avsum_torch.ops.color import yuv420_to_rgb
 from avsum_torch.train.config import VisualFeatConfig
+from avsum_torch.utils.transfer import HostCopy, PinnedRing, to_device
 from avsum_torch.vision.inception import InceptionV3
 from avsum_torch.vision.resnet import ResNet50
 
-IMAGENET_MEAN = torch.tensor([0.485, 0.456, 0.406], dtype=torch.float32)
-IMAGENET_STD = torch.tensor([0.229, 0.224, 0.225], dtype=torch.float32)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@functools.lru_cache(maxsize=8)
+def _imagenet_stats(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet mean and std as float32 tensors on ``device``, uploaded
+    once per device (an upload on every batch would wait for the
+    device's queue)."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
 
 
 def normalize_frames(frames: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """[B, H, W, 3] RGB in [0, 255] -> /255 in ``dtype``, then ImageNet
     mean/std in float32, cast back to ``dtype`` (JAX's promotion order)."""
     x = frames.to(dtype) / torch.tensor(255.0, dtype=dtype)
-    x = (x.float() - IMAGENET_MEAN.to(x.device)) / IMAGENET_STD.to(x.device)
+    mean, std = _imagenet_stats(x.device)
+    x = (x.float() - mean) / std
     return x.to(dtype)
 
 
@@ -119,7 +130,14 @@ class DualBackbone(nn.Module):
 
 
 class VisualFrontend:
-    """Frame embedding on the device + masked per-shot mean pooling."""
+    """Frame embedding on the device + masked per-shot mean pooling.
+
+    The dispatch methods upload each batch through a ring of pinned
+    buffers and enqueue its embedding without waiting for the device, so
+    the host can read the next batch (or run other host work) meanwhile;
+    :meth:`pool_on_device` pools the pending features on the device."""
+
+    MIN_BUCKET = 32
 
     def __init__(self, config: VisualFeatConfig, model: nn.Module,
                  device: torch.device):
@@ -127,30 +145,94 @@ class VisualFrontend:
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.batch_size = config.batch_size
+        self._ring = PinnedRing(self.device)
+
+    def tail_bucket(self, n: int) -> int:
+        """Batch bucket for a block of ``n`` frames: ``batch_size`` for a
+        full block, else the smallest power-of-two fraction of it (>=
+        ``MIN_BUCKET``) that holds ``n``, so a short tail block embeds
+        (and uploads) little padding."""
+        b = self.batch_size
+        while b // 2 >= max(n, self.MIN_BUCKET):
+            b //= 2
+        return b
+
+    def _embed_packed(self, buf: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """One flat uint8 device buffer ``[B*h*w | B*(h/2)*(w/2) | same]``
+        -> [B, D] float32 features (B from the buffer's length)."""
+        ny, nc = h * w, (h // 2) * (w // 2)
+        b = buf.numel() // (ny + 2 * nc)
+        y = buf[:b * ny].view(b, h, w)
+        u = buf[b * ny:b * (ny + nc)].view(b, h // 2, w // 2)
+        v = buf[b * (ny + nc):b * (ny + 2 * nc)].view(b, h // 2, w // 2)
+        return self.model(torch.stack(yuv420_to_rgb(y, u, v), dim=-1)).float()
 
     @torch.inference_mode()
+    def dispatch_yuv(self, y: np.ndarray, u: np.ndarray, v: np.ndarray):
+        """Enqueue the embedding of YUV420 planes [F, H, W] / [F, H/2, W/2]
+        uint8 in batches of ``batch_size`` (the tail zero-padded to its
+        bucket) -> (pending [bucket, D] device tensors, F). Each batch goes
+        up as one packed buffer."""
+        f, h, w = y.shape
+        ny, nc = h * w, (h // 2) * (w // 2)
+        pending = []
+        for i in range(0, f, self.batch_size):
+            planes = [p[i:i + self.batch_size] for p in (y, u, v)]
+            n = planes[0].shape[0]
+            bb = self.tail_bucket(n)
+
+            def fill(buf, planes=planes, n=n, bb=bb):
+                for start, size, plane in ((0, ny, planes[0]),
+                                           (bb * ny, nc, planes[1]),
+                                           (bb * (ny + nc), nc, planes[2])):
+                    buf[start:start + n * size] = plane.reshape(-1)
+                    buf[start + n * size:start + bb * size] = 0
+
+            dev = self._ring.upload(bb * (ny + 2 * nc), fill)
+            pending.append(self._embed_packed(dev, h, w))
+        return pending, f
+
+    @torch.inference_mode()
+    def dispatch_packed(self, buf: np.ndarray, h: int, w: int) -> torch.Tensor:
+        """Enqueue the embedding of ONE packed plane buffer, the layout
+        ``io.native``'s ``read_yuv420_packed`` writes (length ``bucket *
+        (h*w + 2*(h/2)*(w/2))`` for a valid bucket) -> [bucket, D]."""
+        per = h * w + 2 * (h // 2) * (w // 2)
+        b, rem = divmod(buf.shape[0], per) if buf.ndim == 1 else (0, 1)
+        if rem or b <= 0 or (b != self.batch_size and b != self.tail_bucket(b)):
+            raise ValueError(
+                f"packed buffer shape {buf.shape} is not a bucket multiple "
+                f"of the {h}x{w} plane layout (full batch = "
+                f"({self.batch_size * per},))")
+
+        def fill(host):
+            host[:] = buf
+
+        return self._embed_packed(self._ring.upload(buf.shape[0], fill), h, w)
+
+    def collect(self, pending, n_frames: int) -> np.ndarray:
+        """Pending features -> [n_frames, D] float32 on the host."""
+        if not pending:
+            return np.zeros((0, self.config.feature_dim), np.float32)
+        return torch.cat(pending)[:n_frames].cpu().numpy()
+
     def frame_features_yuv(self, y: np.ndarray, u: np.ndarray,
                            v: np.ndarray) -> torch.Tensor:
         """YUV420 planes [F, H, W] / [F, H/2, W/2] uint8 -> [F, D] float32
-        features on the device, in batches of ``batch_size`` frames."""
-        feats = []
-        for i in range(0, y.shape[0], self.batch_size):
-            planes = [torch.from_numpy(np.ascontiguousarray(p[i:i + self.batch_size]))
-                      .to(self.device) for p in (y, u, v)]
-            frames = torch.stack(yuv420_to_rgb(*planes), dim=-1)
-            feats.append(self.model(frames).float())
-        if not feats:
+        features on the device."""
+        pending, f = self.dispatch_yuv(y, u, v)
+        if not pending:
             return torch.zeros(0, self.config.feature_dim, device=self.device)
-        return torch.cat(feats)
+        return torch.cat(pending)[:f]
 
     @torch.inference_mode()
     def frame_features(self, frames: np.ndarray) -> torch.Tensor:
         """[F, H, W, 3] RGB frames -> [F, D] float32 features on the
         device, in batches of ``batch_size`` frames (uint8 goes up as it
         is and is converted on the device)."""
-        feats = [self.model(torch.from_numpy(np.ascontiguousarray(
-            frames[i:i + self.batch_size])).to(self.device)).float()
-            for i in range(0, frames.shape[0], self.batch_size)]
+        feats = [self.model(to_device(frames[i:i + self.batch_size],
+                                      self.device)).float()
+                 for i in range(0, frames.shape[0], self.batch_size)]
         if not feats:
             return torch.zeros(0, self.config.feature_dim, device=self.device)
         return torch.cat(feats)
@@ -169,16 +251,58 @@ class VisualFrontend:
     @torch.inference_mode()
     def pool(self, feats: torch.Tensor, shot_ids: np.ndarray,
              keep: np.ndarray, n_shots: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Masked segment mean of ``pool_on_device`` (run_ids=None): frame f
-        adds to shot ``shot_ids[f]`` when ``keep[f]``. -> (pooled [n_shots,
-        D] float32, counts [n_shots] float32), on the device."""
-        ids = torch.from_numpy(np.asarray(shot_ids, np.int64)).to(self.device)
-        w = torch.from_numpy(np.asarray(keep, np.float32)).to(self.device)
-        d = feats.shape[1]
-        sums = torch.zeros(n_shots, d, device=self.device).index_add_(
-            0, ids, feats.float() * w[:, None])
+        """Masked segment mean: frame f adds to shot ``shot_ids[f]`` when
+        ``keep[f]`` -> (pooled [n_shots, D] float32, counts [n_shots]
+        float32), on the device."""
+        ids = to_device(np.asarray(shot_ids, np.int64), self.device)
+        w = to_device(np.asarray(keep, np.float32), self.device)
+        sums = torch.zeros(n_shots, feats.shape[1], device=self.device)
+        sums.index_add_(0, ids, feats.float() * w[:, None])
         counts = torch.zeros(n_shots, device=self.device).index_add_(0, ids, w)
         return sums / counts.clamp(min=1.0)[:, None], counts
+
+    @torch.inference_mode()
+    def pool_on_device(self, pending, n_frames: int, shot_ids: np.ndarray,
+                       keep: np.ndarray, n_shots: int,
+                       run_ids: Optional[np.ndarray] = None,
+                       return_device: bool = False):
+        """Segment-pool dispatched frame features on the device.
+
+        ``shot_ids`` / ``keep``: each sampled frame's shot and cap mask.
+        ``run_ids``: each sampled frame's index into the embedded frames
+        (frame f pools embedding ``run_ids[f]``; with frame dedup only a
+        run's first frame is embedded); None is the identity. The shot
+        axis is bucketed to a multiple of 64 (at least 64) plus one
+        overflow bin, which takes the padded frames.
+
+        -> (pooled [n_shots, D], counts [n_shots]) float32 numpy arrays;
+        with ``return_device`` the pooled features stay on the device as
+        the whole [bucket + 1, D] tensor (rows >= n_shots are padding, the
+        last is the overflow bin) and the counts come as a
+        :class:`HostCopy` already on its way to the host."""
+        if not pending:
+            return (np.zeros((n_shots, self.config.feature_dim), np.float32),
+                    np.zeros(n_shots, np.float32))
+        feats = torch.cat(pending)
+        n_bucket = max(64, -(-n_shots // 64) * 64)
+        if run_ids is None:
+            f_pad = feats.shape[0]
+        else:
+            # the sampled-frame axis, padded to a multiple of batch_size
+            f_pad = max(self.batch_size,
+                        -(-n_frames // self.batch_size) * self.batch_size)
+            runs = np.zeros(f_pad, np.int64)
+            runs[:n_frames] = run_ids
+            feats = feats[to_device(runs, self.device)]
+        ids = np.full(f_pad, n_bucket, np.int64)  # padding -> overflow bin
+        ids[:n_frames] = shot_ids
+        keep_p = np.zeros(f_pad, np.float32)
+        keep_p[:n_frames] = keep
+        pooled, counts = self.pool(feats, ids, keep_p, n_bucket + 1)
+        if return_device:
+            return pooled, HostCopy(counts)
+        return (pooled[:n_shots].cpu().numpy(),
+                counts[:n_shots].cpu().numpy())
 
 
 def sample_shot_frames(
@@ -205,8 +329,9 @@ def make_backbone(config: VisualFeatConfig, seed: int = 0,
     dtype = DTYPES[config.dtype]
     if config.weights:
         raise ValueError(
-            "visual.weights holds a JAX param file; convert it with "
-            "avsum_torch.convert and pass the state_dict instead")
+            "visual.weights holds a JAX param file: write its variables to "
+            "V.npz (README.md) and run `python -m avsum_torch.convert "
+            "--visual V.npz --out w.pt`, then pass --weights w.pt")
     if config.backbone == "dual":
         model = DualBackbone(dtype)
     elif config.backbone == "tiny":

@@ -47,10 +47,24 @@ raising on failure:
    --kfold``; ``train --splits --fold 0`` for 2 epochs; ``evaluate
    --canonical`` over the five videos (K2 runs: the 533-shot video's
    ladder reaches S = 1024); ``summarize DIR`` and ``summarize --render``
-   with the trained scorer.
+   with the trained scorer;
+10. serving, at the phase 3 widths and weights: (a) the device-resident
+   summarize against the materializing path on the short and the long
+   video (K1 on both, K2 on the long one, whose 533 shots both paths pad
+   to 544), and the device's busy share in a profiled run of the
+   long one; (b) frame dedup on the short video against none; (c) a
+   ``SummarizeServer`` on a free local port answering two bursts of 6
+   concurrent requests and an upload, each equal to ``summarize`` of its
+   video, with latencies beside the same videos summarized one after
+   another; (d)
+   the scorer exported on the card and scored in a process where
+   ``avsum_torch`` cannot be imported, against the eager scorer (K2), and
+   one request to ``serve --artifact``; (e) the knapsack DP on the card at
+   3200 shots x capacity 16200 against the NumPy DP.
 
-Launch counts are reset just before each run of phases 3-5 and 9 and read
-just after it; the comparisons of phases 6-8 are not counted.
+Launch counts are reset just before each run of phases 3-5, 9 and 10 and
+read just after it; the comparisons of phases 6-8 and (d)'s eager
+scorer are not counted.
 
 The last three lines are the kernels' JSON, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -59,11 +73,14 @@ when there is no CUDA device or no checkout beside the script.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
 import logging
+import multiprocessing
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -84,6 +101,11 @@ HOUR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SUMME_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "configs", "summe.yaml")
 FEATURE_TOL = dict(rtol=1e-3, atol=1e-3)  # preprocess vs summarize features
+DEDUP_COS = 0.98  # dedup vs none, per-shot cosine (tests/test_dedup.py)
+DEDUP_THRESHOLD = 12.0  # mean |d luma| (tests/test_dedup.py's moderate one)
+KNAPSACK_RTOL = 1e-6  # device (float32) vs NumPy (float64) DP total value
+SEED = 0  # the random weights of phases 3, 4, 9 and 10
+MOVE_SHOTS = 64  # shots scored by the artifact moved to the CPU
 SHOT_TOL = 1e-3  # device shot scores, card vs CPU
 CLASSIC_CORR = 0.98  # classic vs fast path features (the JAX test's bound)
 # NVIDIA H100 SXM, dense (data sheet): TF32 tensor-core rate, HBM3 rate
@@ -1007,6 +1029,430 @@ def run_dataset(tmp: str, pipeline, n_frames: dict, fast_short) -> dict:
     return {"melspec": pre["melspec"], "flash_fwd": ev["flash_fwd"]}
 
 
+def _post(port: int, path: str, body, timeout: float = 600):
+    """One request to the local server (GET when ``body`` is None) ->
+    (status, JSON payload)."""
+    from http.client import HTTPConnection
+
+    conn = HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST" if body is not None else "GET", path, body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"{}")
+    finally:
+        conn.close()
+
+
+def _wait_ready(port: int, proc=None, limit: float = 300) -> None:
+    deadline = time.time() + limit
+    while time.time() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"server exited {proc.returncode}")
+        try:
+            if _post(port, "/readyz", None, timeout=5)[0] == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError("the server never became ready")
+
+
+def _same_summary(got_scores, got_segments, want: dict, what: str) -> float:
+    import numpy as np
+
+    err = float(np.abs(np.asarray(got_scores) - want["scores"]).max())
+    if err > SCORE_TOL or not np.array_equal(
+            np.asarray(got_segments).reshape(-1, 2), want["segments"]):
+        raise AssertionError(f"{what}: scores max|d| {err}, segments "
+                             f"{got_segments} vs {want['segments'].tolist()}")
+    return err
+
+
+def check_fast_path(pipeline, model, path: str) -> dict:
+    """(a) The device-resident summarize against the materializing path
+    (``process_video``, then the scorer at a multiple of 32) -> the
+    launches of both runs."""
+    import numpy as np
+
+    _reset_k12()
+    t0 = time.perf_counter()
+    fast = pipeline.summarize(path, model)
+    secs = time.perf_counter() - t0
+    stages = {k: round(v, 4) for k, v in pipeline.stage_seconds.items()}
+    counts = _k12_counts()
+    _reset_k12()
+    t0 = time.perf_counter()
+    mat = pipeline._score_summary(pipeline.process_video(path), model, None)
+    mat_secs = time.perf_counter() - t0
+    mat_counts = _k12_counts()
+    if not np.array_equal(fast["boundaries"], mat["boundaries"]):
+        raise AssertionError("fast and materializing paths cut differently")
+    err = _same_summary(fast["scores"], fast["segments"], mat,
+                        f"fast vs materializing on {path}")
+    syncs = _syncs(pipeline, model, path)
+    print(f"fast path {os.path.basename(path)}: {len(fast['boundaries'])} "
+          f"shots, {secs:.3f} s, launches {counts}, stages "
+          f"{json.dumps(stages)}; materializing {mat_secs:.3f} s, launches "
+          f"{mat_counts}; scores max|d| {err:.3e}, segments equal; "
+          f"synchronizing operations in a third run: {len(syncs)} {syncs}")
+    if len(syncs) > 1:
+        raise AssertionError("the device-resident summarize waits for the "
+                             "device before the scores' readback")
+    return {k: counts[k] + mat_counts[k] for k in counts}
+
+
+def _syncs(pipeline, model, path: str) -> list:
+    """The operations torch's sync debug mode reports as waiting for the
+    device in one device-resident summarize (the final scores' readback
+    is one; the counts' copy waits on its own event, which is not one)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pipeline.summarize(path, model)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's one-time notice ("a prototype feature") is no operation
+    return [str(w.message).splitlines()[0][:80] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def profile_summarize(pipeline, model, path: str) -> None:
+    """The device's busy share in one warm device-resident summarize
+    (torch.profiler): the device time of every kernel and copy against
+    the host wall of the profiled run (the profiler's own host cost is
+    inside that wall, so the share is a lower bound), and the five
+    largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipeline.summarize(path, model)
+        wall = (time.perf_counter() - t0) * 1e3
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in evts) / 1e3
+    top = sorted(evts, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"profile of summarize {os.path.basename(path)}: device busy "
+          f"{busy:.1f} of {wall:.1f} ms wall ({100 * busy / wall:.0f}%), "
+          f"{sum(e.count for e in evts)} device operations; largest: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} "
+                      f"ms ({e.count})" for e in top))
+
+
+def check_dedup(pipeline, path: str) -> None:
+    """(b) ``visual.dedup_threshold`` against none on one video: the same
+    boundaries, per-shot cosine above DEDUP_COS, fewer frames embedded."""
+    import dataclasses
+
+    import numpy as np
+
+    from avsum_torch.pipeline import AVPipeline
+
+    runs, shipped = {}, {}
+    for thr in (0.0, DEDUP_THRESHOLD):
+        cfg = dataclasses.replace(pipeline.config, visual=dataclasses.replace(
+            pipeline.config.visual, dedup_threshold=thr))
+        pipe = AVPipeline(cfg, pipeline.visual, pipeline.audio)
+        real = pipe.visual.dispatch_yuv
+        counted = []
+
+        def counting(y, u, v, real=real, counted=counted):
+            counted.append(y.shape[0])
+            return real(y, u, v)
+
+        pipe.visual.dispatch_yuv = counting
+        try:
+            runs[thr] = pipe.process_video(path)
+        finally:
+            del pipe.visual.dispatch_yuv
+        shipped[thr] = sum(counted)
+    off, on = runs[0.0], runs[DEDUP_THRESHOLD]
+    unit = [v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-9)
+            for v in (off.visual, on.visual)]
+    cos = (unit[0] * unit[1]).sum(1)
+    sampled = len(range(0, off.n_frames, max(1, round(
+        off.fps / pipeline.config.visual.sample_fps))))
+    same = np.array_equal(off.boundaries, on.boundaries)
+    print(f"dedup {DEDUP_THRESHOLD} on {os.path.basename(path)}: "
+          f"{shipped[DEDUP_THRESHOLD]}/{sampled} sampled frames embedded, "
+          f"same boundaries {same}, per-shot cosine against no dedup min "
+          f"{cos.min():.5f}")
+    if (not same or cos.min() <= DEDUP_COS
+            or not 0 < shipped[DEDUP_THRESHOLD] < sampled):
+        raise AssertionError("dedup changed the shots or the features")
+
+
+def _burst(port: int, videos: list) -> tuple:
+    """One request per video from a client thread each, all at once ->
+    ([(status, payload, client seconds)], wall seconds of the burst)."""
+    import threading
+
+    results = [None] * len(videos)
+
+    def client(i):
+        t = time.perf_counter()
+        body = json.dumps({"path": videos[i]}).encode()
+        results[i] = (*_post(port, "/v1/summarize", body),
+                      time.perf_counter() - t)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(videos))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client never got its answer")
+    return results, time.perf_counter() - t0
+
+
+def check_server(pipeline, model, videos: list) -> dict:
+    """(c) A server on a free local port: two bursts of concurrent
+    requests (the first also sets up the worker thread's own cuDNN plans
+    for these shapes), each answer equal to ``summarize`` of its video;
+    an upload; stats -> the launches from the server's start to its
+    stop."""
+    import dataclasses
+
+    from avsum_torch.pipeline import AVPipeline
+    from avsum_torch.serve import ServeConfig, SummarizeServer
+
+    # an upload has no wav sidecar: it is summarized with silence
+    cfg = dataclasses.replace(pipeline.config, audio=dataclasses.replace(
+        pipeline.config.audio, silence_fallback=True))
+    served = AVPipeline(cfg, pipeline.visual, pipeline.audio)
+    server = SummarizeServer(served, ServeConfig(port=0, warmup=True),
+                             model=model)
+    _reset_k12()
+    t0 = time.perf_counter()
+    server.start(block=False)
+    try:
+        _wait_ready(server.port)
+        print(f"server ready on port {server.port} in "
+              f"{time.perf_counter() - t0:.2f} s (warmup included)")
+        bursts = [_burst(server.port, videos) for _ in range(2)]
+        with open(videos[0], "rb") as fh:
+            code, up = _post(server.port, "/v1/summarize/upload?ext=y4m",
+                             fh.read())
+        if code != 200 or not up["segments"]:
+            raise AssertionError(f"upload: {code} {up}")
+        _, stats = _post(server.port, "/v1/stats", None)
+    finally:
+        server.stop()
+    counts = _k12_counts()
+    seq, walls = {}, []
+    for path in videos:
+        t0 = time.perf_counter()
+        seq[path] = pipeline.summarize(path, model)
+        walls.append(time.perf_counter() - t0)
+    for n, (results, wall) in enumerate(bursts):
+        for path, (code, payload, _) in zip(videos, results):
+            if code != 200:
+                raise AssertionError(f"{path}: {code} {payload}")
+            _same_summary(payload["shot_scores"], payload["segments"],
+                          seq[path], f"served {path}")
+        print(f"server burst {n + 1}: {len(videos)} concurrent requests all "
+              f"200 and equal to summarize; latency s "
+              f"{[round(r[2], 3) for r in results]} (server-side "
+              f"{[r[1]['latency_s'] for r in results]}); wall {wall:.3f} s")
+    print(f"server: the same videos summarized one after another "
+          f"{sum(walls):.3f} s ({[round(w, 3) for w in walls]}); upload "
+          f"{len(up['shot_scores'])} shots; stats {json.dumps(stats)}; "
+          f"launches {counts}")
+    if stats.get("requests", 0) < 2 * len(videos) + 2 or stats["failures"]:
+        raise AssertionError(f"stats {stats}")
+    return counts
+
+
+EXPORT_PROBE = """
+import sys
+sys.modules["avsum_torch"] = None  # the artifact needs no model code
+import numpy as np, torch
+fn = torch.export.load(sys.argv[1]).module()
+x = np.load(sys.argv[2])
+with torch.no_grad():
+    out = fn(*(torch.from_numpy(x[k]).cuda() for k in ("visual", "audio",
+                                                       "mask")))
+np.save(sys.argv[3], out.cpu().numpy())
+"""
+
+
+def start_export(tmp: str):
+    """``export`` of the scorer through the CLI on the card, started in
+    the background (``--seed`` draws the phase 3 scorer's weights) -> (the
+    process, the artifact's path, its log's path)."""
+    art, err = f"{tmp}/scorer.pt2", f"{tmp}/export.log"
+    with open(err, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "avsum_torch.cli", "export",
+             "--random-init", "--seed", str(SEED), "--config",
+             TVSUM_CONFIG, "--device", "cuda", "--output", art],
+            stdout=subprocess.DEVNULL, stderr=fh)
+    return proc, art, err
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path) as fh:
+        return fh.read()[-n:]
+
+
+def check_export(pipeline, model, tmp: str, many: str, short: str,
+                 export) -> None:
+    """(d) The artifact written by the background ``export``, scored in a
+    process where ``avsum_torch`` cannot be imported and, moved to the
+    CPU, in this one, against the eager scorer on the long video's padded
+    features (K2 at S = 544); at the same time one request to ``serve
+    --artifact``."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from avsum_torch.serve.export import load_scorer
+
+    proc, art, err = export
+    if proc.wait(timeout=600) != 0:
+        raise AssertionError(f"export exited {proc.returncode}: {_tail(err)}")
+    print(f"export (CLI, in the background since phase 3): "
+          f"{_tail(err, 400).strip().splitlines()[-1]}")
+    _, visual, audio, mask = pipeline.pad_scorer_inputs(
+        pipeline.process_video(many))
+    np.savez(f"{tmp}/many_inputs.npz", visual=visual, audio=audio, mask=mask)
+    _reset_k12()
+    with torch.inference_mode():
+        eager = model(*(torch.from_numpy(a).cuda() for a in
+                        (visual, audio, mask))).cpu().numpy()
+    counts = _k12_counts()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with open(f"{tmp}/serve.log", "w") as log_fh:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "avsum_torch.cli", "serve", "--artifact",
+             art, "--port", str(port), "--config", TVSUM_CONFIG,
+             "--random-init", "--no-warmup", "--device", "cuda"],
+            stdout=subprocess.DEVNULL, stderr=log_fh)
+    try:
+        probe = subprocess.run(
+            [sys.executable, "-c", EXPORT_PROBE, art,
+             f"{tmp}/many_inputs.npz", f"{tmp}/many_scores.npy"],
+            capture_output=True, text=True, timeout=300)
+        probe_s = time.perf_counter() - t0
+        _wait_ready(port, server)
+        code, out = _post(port, "/v1/summarize",
+                          json.dumps({"path": short}).encode())
+        serve_s = time.perf_counter() - t0
+        server.send_signal(signal.SIGTERM)
+        rc = server.wait(timeout=120)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    if probe.returncode:
+        raise AssertionError(f"artifact probe failed: {probe.stderr[-3000:]}")
+    diff = float(np.abs(np.load(f"{tmp}/many_scores.npy") - eager).max())
+    print(f"artifact: scored in a process without avsum_torch "
+          f"{probe_s:.2f} s after its start at {list(mask.shape)}: max|d| "
+          f"vs the eager scorer {diff:.3e} (eager launches {counts})")
+    if diff > SCORE_TOL or counts["flash_fwd"] <= 0:
+        raise AssertionError(f"artifact vs eager {diff}, launches {counts}")
+    t0 = time.perf_counter()
+    head = [a[:, :MOVE_SHOTS] for a in (visual, audio, mask)]
+    on_cpu = load_scorer(art, "cpu")(*head).numpy()
+    with torch.inference_mode():
+        want = model(*(torch.from_numpy(a).cuda() for a in head)).cpu()
+    diff = float(np.abs(on_cpu - want.numpy()).max())
+    print(f"artifact moved from the card to the CPU: loaded and scored "
+          f"[1, {MOVE_SHOTS}] in {time.perf_counter() - t0:.2f} s, max|d| "
+          f"vs the eager scorer {diff:.3e}")
+    if diff > SCORE_TOL:
+        raise AssertionError(f"the artifact on the CPU disagrees: {diff}")
+    if code != 200 or rc != 0:
+        raise AssertionError(f"serve --artifact: {code} {out}, rc {rc}: "
+                             f"{_tail(f'{tmp}/serve.log')}")
+    diff = _same_summary(out["shot_scores"], out["segments"],
+                         pipeline.summarize(short, model), "serve --artifact")
+    print(f"serve --artifact: one request 200 {serve_s:.2f} s after the "
+          f"process's start, scores max|d| vs summarize {diff:.3e}, SIGTERM "
+          f"rc {rc}")
+
+
+def check_knapsack() -> None:
+    """(e) The device DP at 3200 shots x capacity 16200 (an hour at 30
+    fps, 15% budget) against the NumPy DP, on seeded continuous scores."""
+    import numpy as np
+    import torch
+
+    from avsum_torch.summary.knapsack import (
+        MAX_DP_CELLS,
+        knapsack_select_np,
+        select_summary,
+    )
+
+    rng = np.random.default_rng(17)
+    n, total = 3200, 108000
+    lengths = rng.integers(10, 58, n)
+    ends = np.cumsum(lengths)
+    bounds = np.stack([ends - lengths, ends], 1)
+    scores = rng.random(n).astype(np.float32)
+    cap = int(0.15 * total)
+    values = scores * lengths.astype(np.float32)
+    if n * (cap + 1) < MAX_DP_CELLS:
+        raise AssertionError("the problem does not reach the device DP")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sel, _ = select_summary(scores, bounds, total, 0.15, "cuda")
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = knapsack_select_np(values, lengths, cap)
+    np_s = time.perf_counter() - t0
+    got_v = float(values[sel].astype(np.float64).sum())
+    want_v = float(values[ref].astype(np.float64).sum())
+    rel = abs(got_v - want_v) / want_v
+    same = np.array_equal(sel, ref)
+    print(f"knapsack {n} x {cap + 1} ({n * (cap + 1)} cells): device DP "
+          f"{dev_s:.3f} s, NumPy DP {np_s:.3f} s (host clock, each to its "
+          f"selection on the host); total value {got_v:.6f} vs {want_v:.6f} "
+          f"(rel {rel:.2e}), {int(sel.sum())} shots, same selection {same}, "
+          f"{int(lengths[sel].sum())}/{cap} frames")
+    if rel > KNAPSACK_RTOL or not same or lengths[sel].sum() > cap:
+        raise AssertionError("the device knapsack disagrees with NumPy's")
+
+
+def run_serving(tmp: str, pipeline, model, vdir: str, export) -> dict:
+    """Phase 10 -> the launches of K1 and K2 in its runs; ``export`` is
+    :func:`start_export`'s."""
+    short, many = f"{vdir}/short.y4m", f"{vdir}/many.y4m"
+    counts = check_fast_path(pipeline, model, short)
+    n_many = check_fast_path(pipeline, model, many)
+    if (counts["melspec"] <= 0 or n_many["melspec"] <= 0
+            or n_many["flash_fwd"] <= 0):
+        raise AssertionError(f"phase 10 (a) launches {counts} / {n_many}")
+    profile_summarize(pipeline, model, many)
+    check_dedup(pipeline, short)
+    videos = [short, many] + [f"{vdir}/scenes{i}.y4m" for i in range(3)] + [
+        short]
+    served = check_server(pipeline, model, videos)
+    # (d)'s eager scorer is the reference side of a comparison: its
+    # launches are not the main path's
+    check_export(pipeline, model, tmp, many, short, export)
+    check_knapsack()
+    return {k: counts[k] + n_many[k] + served[k] for k in counts}
+
+
 def main() -> int:
     try:
         import torch
@@ -1019,8 +1465,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from avsum_torch.cli.main import build_pipeline
-    from avsum_torch.io import load_audio_mono_16k_ship
     from avsum_torch.train.config import load_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1032,36 +1476,59 @@ def main() -> int:
     phase_build()
 
     cfg = load_config(TVSUM_CONFIG)
-    budget = cfg.summary.budget_fraction
     with tempfile.TemporaryDirectory() as tmp:
-        vdir = f"{tmp}/data/videos"
-        os.makedirs(vdir)
-        short, many = f"{vdir}/short", f"{vdir}/many"
-        n_frames = {"short": _video(short, 12, 360, 640, (24, 90), seed=5),
-                    "many": _video(many, 540, 72, 96, (30, 40), seed=6)}
-        t0 = time.perf_counter()
-        pipeline, model = build_pipeline(cfg, "cuda", seed=0)
-        print(f"random weights on the card in {time.perf_counter() - t0:.1f} s")
+        export = start_export(tmp)
+        try:
+            return _run_in(tmp, cfg, card, export)
+        finally:
+            if export[0].poll() is None:
+                export[0].kill()
+                export[0].wait()
 
-        res_short, n_short = run_summarize(pipeline, model, f"{short}.y4m",
-                                           budget)
-        if n_short["melspec"] <= 0:
-            raise AssertionError("K1 did not run on the short video")
-        fast_short = check_against_cpu(pipeline, model, f"{short}.y4m",
-                                       res_short)
 
-        res_many, n_many = run_summarize(pipeline, model, f"{many}.y4m",
-                                         budget)
-        # the audio front-end pads each waveform to a power of two
-        k1_samples = [1 << (len(load_audio_mono_16k_ship(f"{v}.wav")) - 1)
-                      .bit_length() for v in (short, many)]
-        s_pad = -(-len(res_many["boundaries"]) // 32) * 32
-        if s_pad < 512 or n_many["flash_fwd"] <= 0 or n_many["melspec"] <= 0:
-            raise AssertionError(
-                f"padded S {s_pad}: the long video did not run both "
-                f"kernels ({n_many})")
-        n_train = run_train(tmp)
-        n_data = run_dataset(tmp, pipeline, n_frames, fast_short)
+def _run_in(tmp: str, cfg, card: str, export) -> int:
+    """Phases 3-10 in ``tmp``, then the kernels' checks (phases 6-8) and
+    the result lines."""
+    import torch
+
+    from avsum_torch.cli.main import build_pipeline
+    from avsum_torch.io import load_audio_mono_16k_ship
+
+    budget = cfg.summary.budget_fraction
+    vdir = f"{tmp}/data/videos"
+    os.makedirs(vdir)
+    short, many = f"{vdir}/short", f"{vdir}/many"
+    # the two videos are written in two processes at once
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {"short": pool.submit(_video, short, 12, 360, 640, (24, 90),
+                                     5),
+                "many": pool.submit(_video, many, 540, 72, 96, (30, 40), 6)}
+        n_frames = {vid: job.result() for vid, job in jobs.items()}
+    t0 = time.perf_counter()
+    pipeline, model = build_pipeline(cfg, "cuda", seed=SEED)
+    print(f"random weights on the card in {time.perf_counter() - t0:.1f} s")
+
+    res_short, n_short = run_summarize(pipeline, model, f"{short}.y4m",
+                                       budget)
+    if n_short["melspec"] <= 0:
+        raise AssertionError("K1 did not run on the short video")
+    fast_short = check_against_cpu(pipeline, model, f"{short}.y4m",
+                                   res_short)
+
+    res_many, n_many = run_summarize(pipeline, model, f"{many}.y4m",
+                                     budget)
+    # the audio front-end pads each waveform to a power of two
+    k1_samples = [1 << (len(load_audio_mono_16k_ship(f"{v}.wav")) - 1)
+                  .bit_length() for v in (short, many)]
+    s_pad = -(-len(res_many["boundaries"]) // 32) * 32
+    if s_pad < 512 or n_many["flash_fwd"] <= 0 or n_many["melspec"] <= 0:
+        raise AssertionError(
+            f"padded S {s_pad}: the long video did not run both "
+            f"kernels ({n_many})")
+    n_train = run_train(tmp)
+    n_data = run_dataset(tmp, pipeline, n_frames, fast_short)
+    n_serve = run_serving(tmp, pipeline, model, vdir, export)
 
     k1 = check_k1(k1_samples)
     k2 = check_k2(s_pad)
@@ -1073,12 +1540,13 @@ def main() -> int:
          "source": "avsum_torch/csrc/melspec.cu",
          "replaces": "avsum_tpu/ops/pallas_melspec.py:39",
          "launches": (n_short["melspec"] + n_many["melspec"]
-                      + n_data["melspec"]), **k1},
+                      + n_data["melspec"] + n_serve["melspec"]), **k1},
         {"name": "flash_fwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_fwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:42",
          "launches": (n_short["flash_fwd"] + n_many["flash_fwd"]
-                      + n_train["flash_fwd"] + n_data["flash_fwd"]), **k2},
+                      + n_train["flash_fwd"] + n_data["flash_fwd"]
+                      + n_serve["flash_fwd"]), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:173",

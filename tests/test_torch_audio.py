@@ -163,6 +163,6 @@ def test_use_pallas_resolves_like_the_jax_front_end(monkeypatch, flag, n_fft,
     refused = [w for w in caught if "n_fft == 2*hop_length" in str(w.message)]
     assert len(refused) == len(caught) == int(warns)
     assert front.use_kernel is kernel
-    mf, lm, _ = front.full_features(_wave(16000, seed=2))  # padded to 2^14
+    mf, lm, _ = front.dispatch_full(_wave(16000, seed=2))  # padded to 2^14
     assert lm.shape == (82, 128) and mf.shape == (82, 40)
     assert calls == ([128] if kernel else [])

@@ -68,6 +68,13 @@ def test_knapsack_and_select_summary_match(seed):
 
 
 def test_select_summary_refuses_device_sized_problems():
-    bounds = np.array([[0, 10**8]])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tks.select_summary(np.ones(1), bounds, 10**8 * 2, 0.5)
+    """A problem of MAX_DP_CELLS cells or more is no longer refused: it
+    runs the device DP (here on the CPU), as the JAX package runs its
+    jitted one."""
+    bounds = np.array([[0, 30], [30, 70]])
+    total = tks.MAX_DP_CELLS
+    assert 2 * (int(0.5 * total) + 1) >= tks.MAX_DP_CELLS
+    selected, segments = tks.select_summary(np.ones(2), bounds, total, 0.5,
+                                            device="cpu")
+    np.testing.assert_array_equal(selected, [True, True])
+    np.testing.assert_array_equal(segments, bounds)

@@ -2,10 +2,10 @@
 6-scene synthetic y4m + wav: both ``AVPipeline``s with the same weights
 (tiny backbone, VGGish and a hidden-64 BiLSTM scorer, all float32,
 converted from JAX). Boundaries and segments must be equal; features and
-scores agree within 1e-4. Also: the summarize slice, the train CLI and
-the dataset path (preprocess, train, evaluate --canonical) run with
-``avsum_tpu``, jax, flax and optax unimportable, and the CLI prints the
-JAX CLI's JSON keys."""
+scores agree within 1e-4. Also: the summarize slice, the train CLI, the
+dataset path (preprocess, train, evaluate --canonical), one request to
+the HTTP service and ``export`` run with ``avsum_tpu``, jax, flax and
+optax unimportable, and the CLI prints the JAX CLI's JSON keys."""
 
 import json
 import os
@@ -94,9 +94,10 @@ def test_summarize_matches_jax(video, pipelines):
     np.testing.assert_allclose(got["scores"], ref["scores"], **TOL)
     np.testing.assert_array_equal(got["segments"], ref["segments"])
     np.testing.assert_array_equal(got["selected"], ref["selected"])
+    # the device-resident summarize's host-clock stages
     assert set(pipe.stage_seconds) == {
-        "visual_embed", "shot_detect", "audio_features", "visual_pool",
-        "audio_pool", "score", "select"}
+        "visual_dispatch", "shot_detect", "audio_load", "prep", "pool",
+        "score", "select", "finish"}
 
 
 # the port alone: the JAX package and JAX's libraries cannot be imported
@@ -233,3 +234,67 @@ def test_cli_summarize_json(tmp_path, monkeypatch, capsys):
     assert len(out["shot_scores"]) >= 2
     torch.testing.assert_close(torch.tensor(out["shot_scores"]).clamp(0, 1),
                                torch.tensor(out["shot_scores"]))
+
+
+NO_JAX_SERVE = BLOCK + """
+from http.client import HTTPConnection
+from avsum_torch.cli.main import build_pipeline
+from avsum_torch.io import write_scene_video
+from avsum_torch.serve import ServeConfig, SummarizeServer
+from avsum_torch.train.config import load_config
+write_scene_video(sys.argv[1], n_scenes=3, seed=5, height=72, width=96)
+pipe, model = build_pipeline(load_config(overrides=sys.argv[2:]), "cpu", seed=1)
+srv = SummarizeServer(pipe, ServeConfig(port=0, warmup=False), model)
+srv.start(block=False)
+try:
+    conn = HTTPConnection("127.0.0.1", srv.port, timeout=120)
+    conn.request("POST", "/v1/summarize",
+                 body=json.dumps({"path": sys.argv[1] + ".y4m"}))
+    resp = conn.getresponse()
+    out = json.loads(resp.read())
+finally:
+    srv.stop()
+assert resp.status == 200, out
+""" + NOT_LOADED + """
+print(json.dumps(out))
+"""
+
+
+@needs_native
+def test_serve_runs_without_jax(tmp_path):
+    """One request to the HTTP service."""
+    res = subprocess.run(
+        [sys.executable, "-c", NO_JAX_SERVE, str(tmp_path / "v"), *SLICE],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["video_id"] == "v" and out["segments"]
+    assert all(0.0 <= s <= 1.0 for s in out["shot_scores"])
+
+
+NO_JAX_EXPORT = BLOCK + """
+import numpy as np
+from avsum_torch.cli.main import main
+from avsum_torch.serve.export import load_scorer
+path = sys.argv[1]
+assert main(["export", "--random-init", "--device", "cpu", "--output", path,
+             *[a for s in sys.argv[2:] for a in ("--set", s)]]) == 0
+scores = load_scorer(path, "cpu")(np.zeros((1, 6, 4096), np.float32),
+                                  np.zeros((1, 6, 296), np.float32),
+                                  np.ones((1, 6), np.float32))
+""" + NOT_LOADED + """
+print(json.dumps(scores.tolist()))
+"""
+
+
+def test_export_runs_without_jax(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-c", NO_JAX_EXPORT, str(tmp_path / "s.pt2"),
+         "model.hidden_dim=16", "model.scorer_hidden=8"],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr[-3000:]
+    scores = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(scores) == 1 and len(scores[0]) == 6
+    assert all(0.0 <= s <= 1.0 for s in scores[0])

@@ -107,20 +107,23 @@ def test_preprocess_dataset_matches_jax(sweep, pipelines):
         # each package takes the other's entry as its own
         assert ours.matches(vid, fp) and theirs.matches(vid, fp)
         assert JaxFeatureCache(str(root / "port")).matches(vid, fp)
+    # the materializing finish's host-clock stages
     assert set(pipe.stage_seconds) == {
-        "visual_embed", "shot_detect", "audio_features", "visual_pool",
-        "audio_pool"}
+        "visual_dispatch", "shot_detect", "audio_load", "prep",
+        "visual_pool", "audio_pool", "finish"}
 
 
 def _counting(pipe, monkeypatch):
+    """The videos the sweep begins (it begins each with
+    ``_begin_processed`` and finishes it one video later)."""
     calls = []
-    real = pipe.process_video
+    real = pipe._begin_processed
 
-    def process_video(path):
+    def begin(path):
         calls.append(os.path.basename(path))
         return real(path)
 
-    monkeypatch.setattr(pipe, "process_video", process_video)
+    monkeypatch.setattr(pipe, "_begin_processed", begin)
     return calls
 
 
