@@ -1,5 +1,6 @@
 """Per-shot audio features, the 296-d contract (``avsum_tpu/audio/frontend.py``):
-40 MFCC + 128 log2-mel + 128 VGGish, each mean-pooled over a shot's rows.
+40 MFCC + 128 log2-mel + 128 from the patch encoder (VGGish, or the large
+encoder with ``audio.encoder: large``), each mean-pooled over a shot's rows.
 
 The whole waveform's streams are computed once on the device; the
 log-mel goes through kernel K1 (:func:`avsum_torch.ops.melspec.fused_log_mel`)
@@ -20,7 +21,6 @@ import torch
 from avsum_torch.audio.vggish import (
     VGGISH_FRAMES,
     VGGISH_HOP,
-    VGGish,
     vggish_log_mel_patches,
 )
 from avsum_torch.models.attention import kernel_enabled
@@ -50,10 +50,10 @@ def segment_means(features: torch.Tensor, start: np.ndarray,
 class AudioFrontend:
     """Whole-waveform spectral + VGGish streams, then per-shot pooling."""
 
-    def __init__(self, config: AudioFeatConfig, vggish: VGGish,
+    def __init__(self, config: AudioFeatConfig, vggish: torch.nn.Module,
                  device: torch.device, use_pallas: Optional[bool] = None):
-        if config.encoder != "vggish":
-            raise ValueError(f"audio encoder {config.encoder!r} is not ported")
+        """``vggish``: the patch encoder, VGGish or the large encoder
+        (:func:`avsum_torch.audio.vggish.make_audio_encoder`)."""
         flag = use_pallas if use_pallas is not None else config.use_pallas
         self.use_kernel = kernel_enabled(flag)
         if self.use_kernel and config.n_fft != 2 * config.hop_length:

@@ -1,10 +1,11 @@
-"""VGGish and its log-mel patch front-end (``avsum_tpu/audio/vggish.py``).
+"""VGGish, the large audio encoder and their log-mel patch front-end
+(``avsum_tpu/audio/vggish.py``).
 
-Module names follow the Flax module (conv1_1 ... conv4_2, fc1_1, fc1_2,
-fc2). The conv stack runs NCHW; before the flatten the activation is
-permuted to NHWC [B, 6, 4, 512], the order of the Flax flatten and of
-torchvggish's own forward, so ``fc1_1`` takes the Flax kernel with a
-plain transpose.
+Module names follow the Flax modules (conv1_1 ... conv4_2, fc1_1, fc1_2,
+fc2; the large encoder's conv{i}_{j}, ln{i}_{j}, fc1, fc2). VGGish's conv
+stack runs NCHW; before the flatten the activation is permuted to NHWC
+[B, 6, 4, 512], the order of the Flax flatten and of torchvggish's own
+forward, so ``fc1_1`` takes the Flax kernel with a plain transpose.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ VGGISH_FMAX = 7500.0
 VGGISH_FRAMES = 96
 VGGISH_EMBED = 128
 _STAGES = ((64, 1), (128, 1), (256, 2), (512, 2))
+_LARGE_STAGES = ((96, 2), (192, 2), (384, 3), (768, 3))
+LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
 
 def vggish_log_mel_patches(waveform: torch.Tensor) -> torch.Tensor:
@@ -72,3 +75,52 @@ class VGGish(nn.Module):
         x = F.relu(self.fc1_1(x))
         x = F.relu(self.fc1_2(x))
         return F.relu(self.fc2(x)).float()
+
+
+class LargeAudioEncoder(nn.Module):
+    """The upgraded audio encoder (``audio.encoder: large``): [B, 96, 64]
+    log-mel patches -> [B, embed_dim] float32, VGGish's contract.
+
+    Four stages of 3x3 "SAME" convolutions (96 x 2, 192 x 2, 384 x 3,
+    768 x 3), each followed by a LayerNorm over the channels only
+    (epsilon 1e-6) and the tanh GELU, a 2x2 max-pool after each stage;
+    then the spatial mean, ``fc1`` 1024 with the tanh GELU, and ``fc2``.
+    The activations are kept channels-last, so the channel LayerNorm
+    reads them in place."""
+
+    def __init__(self, embed_dim: int = VGGISH_EMBED, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        cin = 1
+        for i, (features, reps) in enumerate(_LARGE_STAGES):
+            for j in range(reps):
+                setattr(self, f"conv{i + 1}_{j + 1}",
+                        nn.Conv2d(cin, features, 3, padding=1))
+                setattr(self, f"ln{i + 1}_{j + 1}",
+                        nn.LayerNorm(features, eps=LAYER_NORM_EPS))
+                cin = features
+        self.fc1 = nn.Linear(cin, 1024)
+        self.fc2 = nn.Linear(1024, embed_dim)
+        self.to(dtype)
+
+    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+        x = patches.to(self.dtype)[:, None].contiguous(
+            memory_format=torch.channels_last)
+        for i, (_, reps) in enumerate(_LARGE_STAGES):
+            for j in range(reps):
+                x = getattr(self, f"conv{i + 1}_{j + 1}")(x)
+                y = getattr(self, f"ln{i + 1}_{j + 1}")(x.permute(0, 2, 3, 1))
+                x = F.gelu(y, approximate="tanh").permute(0, 3, 1, 2)
+            x = F.max_pool2d(x, 2, stride=2)
+        x = F.gelu(self.fc1(x.mean(dim=(2, 3))), approximate="tanh")
+        return self.fc2(x).float()
+
+
+def make_audio_encoder(encoder: str, embed_dim: int = VGGISH_EMBED,
+                       dtype=torch.float32) -> nn.Module:
+    """The patch encoder for ``audio.encoder``: VGGish or the large one."""
+    if encoder == "vggish":
+        return VGGish(dtype)
+    if encoder == "large":
+        return LargeAudioEncoder(embed_dim, dtype)
+    raise ValueError(f"unknown audio encoder {encoder!r}")

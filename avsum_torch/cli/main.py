@@ -67,7 +67,7 @@ def build_pipeline(cfg: Config, device: str, seed: int = 0,
     """-> (AVPipeline, scorer or None) with weights from ``weights`` (a
     dict of state_dicts) or drawn from ``seed``."""
     from avsum_torch.audio.frontend import AudioFrontend
-    from avsum_torch.audio.vggish import VGGish
+    from avsum_torch.audio.vggish import make_audio_encoder
     from avsum_torch.init import fast_init_
     from avsum_torch.pipeline import AVPipeline
     from avsum_torch.vision.backbone import DTYPES, VisualFrontend, make_backbone
@@ -79,7 +79,8 @@ def build_pipeline(cfg: Config, device: str, seed: int = 0,
             "audio.vggish_weights holds a JAX param file: write its params "
             "to G.npz (README.md) and run `python -m avsum_torch.convert "
             "--vggish G.npz --out w.pt`, then pass --weights w.pt")
-    vggish = VGGish(DTYPES[cfg.audio.dtype])
+    vggish = make_audio_encoder(cfg.audio.encoder, cfg.audio.vggish_dim,
+                                DTYPES[cfg.audio.dtype])
     if "vggish" in weights:
         vggish.load_state_dict(weights["vggish"])
     else:

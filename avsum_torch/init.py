@@ -27,15 +27,17 @@ def fast_init_(module: nn.Module, seed: int = 0) -> nn.Module:
     for sub in module.modules():
         if isinstance(sub, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             sub.reset_parameters()
-        elif isinstance(sub, (nn.Conv2d, nn.Linear)):
+        elif isinstance(sub, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             normal_(sub.weight, math.prod(sub.weight.shape[1:]))
             if sub.bias is not None:
                 sub.bias.zero_()
         else:
-            # weights kept in the JAX layout [in, out] (the LSTM's wi / wh)
+            # weights kept in the JAX layout [..., in, out] (the LSTM's
+            # wi / wh, the experts' w1 / w2, the ViT's cls and pos_embed):
+            # the fan-in is every axis but the last, as in JAX's fast_init
             for p in sub.parameters(recurse=False):
                 if p.dim() >= 2:
-                    normal_(p, p.shape[0])
+                    normal_(p, math.prod(p.shape[:-1]))
                 else:
                     p.zero_()
     return module

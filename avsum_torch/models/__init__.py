@@ -1,1 +1,2 @@
-"""Scorer models: self-attention, BiLSTM, AVScorer."""
+"""Scorer models: self- and cross-attention, the temporal encoders (BiLSTM,
+attention, staged attention, TCN, MoE) and AVScorer."""

@@ -1,19 +1,26 @@
-"""AVScorer, the audio-visual shot scorer (``avsum_tpu/models/scorer.py``),
-with "self" fusion and the BiLSTM or attention temporal encoder:
+"""AVScorer, the audio-visual shot scorer (``avsum_tpu/models/scorer.py``):
 
     visual [B,S,4096], audio [B,S,296]
       -> modality MLPs (Linear hidden + ReLU + dropout)
-      -> temporal encoder per modality (BiLSTM, or attention blocks)
-      -> concat [B,S,2*hidden] + self-attention over it (residual)
+      -> temporal encoder per modality (``model.temporal_encoder``: BiLSTM,
+         attention blocks, or with ``model.pp_stages`` > 1 the staged
+         attention encoder, dilated convolutions "tcn", experts "moe")
+      -> fusion: "self" concatenates and adds self-attention over the
+         [B,S,2*hidden] concat (with ``model.chunk_size``, the only
+         attention that takes it, as in JAX); "cross" adds to v its
+         attention over a, then to a its attention over the updated v,
+         and concatenates
       -> Linear scorer_hidden -> ReLU -> Linear 1 (float32) -> sigmoid -> [B,S]
 
 Module names follow the Flax tree (visual_fc.dense, visual_temporal.fwd or
-visual_temporal.blocks.0, cross_attention.qkv, scorer_hidden, scorer_out).
-``model.use_pallas`` reaches every self-attention through
-:func:`avsum_torch.models.attention.kernel_enabled`. Dropout is active only
-in ``train()`` mode and draws its masks from the generator passed to
-``forward``. Cross fusion, the MoE and TCN encoders and pipeline stages
-are not ported (``ROADMAP.md``) and raise.
+visual_temporal.blocks.0, cross_attention.qkv, v_attends_a.q, scorer_hidden,
+scorer_out). ``model.use_pallas`` reaches every self-attention through
+:func:`avsum_torch.models.attention.kernel_enabled`; the MoE blocks, the
+stages and cross fusion materialize their attention as the JAX ones do.
+Dropout is active only in ``train()`` mode and draws its masks from the
+generator passed to ``forward``. Every variant runs on one device; the
+mesh-parallel forms (GPipe stages, sharded experts, ring attention) are
+not ported (``ROADMAP.md`` A6).
 """
 
 from __future__ import annotations
@@ -25,10 +32,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsum_torch.init import fast_init_
-from avsum_torch.models.attention import MultiHeadSelfAttention, kernel_enabled
+from avsum_torch.models.attention import (
+    MultiHeadCrossAttention,
+    MultiHeadSelfAttention,
+    kernel_enabled,
+)
+from avsum_torch.models.moe import MoEEncoder
 from avsum_torch.models.temporal import (
     AttentionEncoder,
     BiLSTM,
+    PipelinedAttentionEncoder,
+    TemporalConvEncoder,
     dropout,
     next_seed,
 )
@@ -37,19 +51,28 @@ from avsum_torch.train.config import ModelConfig
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_ported(config: ModelConfig) -> None:
-    """Raise on the scorer variants the port does not have yet."""
-    unported = []
-    if config.temporal_encoder not in ("bilstm", "attention"):
-        unported.append(f"temporal_encoder={config.temporal_encoder!r}")
-    if config.fusion != "self":
-        unported.append(f"fusion={config.fusion!r}")
-    if config.pp_stages > 1:
-        unported.append(f"pp_stages={config.pp_stages}")
-    if unported:
-        raise ValueError(
-            f"not ported to avsum_torch yet: {', '.join(unported)} "
-            "(see ROADMAP.md, queue A2 and A10-A11)")
+def make_temporal(config: ModelConfig, use_kernel: bool) -> nn.Module:
+    """One modality's temporal encoder for ``config.temporal_encoder``."""
+    dtype = DTYPES[config.dtype]
+    hid, kind = config.hidden_dim, config.temporal_encoder
+    if kind == "bilstm":
+        return BiLSTM(hid, hid, dtype)
+    if kind == "attention" and config.pp_stages > 1:
+        return PipelinedAttentionEncoder(hid, config.temporal_layers,
+                                         config.pp_stages, config.num_heads,
+                                         dtype, config.remat)
+    if kind == "attention":
+        return AttentionEncoder(hid, config.temporal_layers, config.num_heads,
+                                config.dropout, dtype, use_kernel,
+                                config.remat).to(dtype)
+    if kind == "moe":
+        return MoEEncoder(hid, config.temporal_layers, config.num_heads,
+                          config.moe_experts, config.moe_topk, config.dropout,
+                          dtype)
+    if kind == "tcn":
+        return TemporalConvEncoder(hid, config.temporal_layers,
+                                   dropout=config.dropout, dtype=dtype)
+    raise ValueError(f"unknown temporal encoder {kind!r}")
 
 
 class ModalityMLP(nn.Module):
@@ -70,7 +93,6 @@ class AVScorer(nn.Module):
 
     def __init__(self, config: ModelConfig = ModelConfig()):
         super().__init__()
-        check_ported(config)
         self.config = config
         dtype = DTYPES[config.dtype]
         hid = config.hidden_dim
@@ -79,21 +101,19 @@ class AVScorer(nn.Module):
                                      dtype)
         self.audio_fc = ModalityMLP(config.audio_dim, hid, config.dropout,
                                     dtype)
-        if config.temporal_encoder == "bilstm":
-            self.visual_temporal = BiLSTM(hid, hid, dtype)
-            self.audio_temporal = BiLSTM(hid, hid, dtype)
-        else:
-            self.visual_temporal, self.audio_temporal = (
-                AttentionEncoder(hid, config.temporal_layers,
-                                 config.num_heads, config.dropout, dtype,
-                                 use_kernel, config.remat).to(dtype)
+        self.visual_temporal = make_temporal(config, use_kernel)
+        self.audio_temporal = make_temporal(config, use_kernel)
+        if config.fusion == "cross":
+            self.v_attends_a, self.a_attends_v = (
+                MultiHeadCrossAttention(hid, config.num_heads, dtype).to(dtype)
                 for _ in range(2))
-        self.cross_attention = MultiHeadSelfAttention(
-            2 * hid, config.num_heads, dtype, use_kernel)
+        else:
+            self.cross_attention = MultiHeadSelfAttention(
+                2 * hid, config.num_heads, dtype, use_kernel,
+                config.chunk_size).to(dtype)
         self.scorer_hidden = nn.Linear(2 * hid, config.scorer_hidden)
         self.scorer_out = nn.Linear(config.scorer_hidden, 1)
-        for mod in (self.visual_fc, self.audio_fc, self.cross_attention,
-                    self.scorer_hidden):
+        for mod in (self.visual_fc, self.audio_fc, self.scorer_hidden):
             mod.to(dtype)
 
     def forward(self, visual: torch.Tensor, audio: torch.Tensor,
@@ -115,8 +135,13 @@ class AVScorer(nn.Module):
         else:
             v = self.visual_temporal(v, mask, gen)
             a = self.audio_temporal(a, mask, gen)
-        fused = torch.cat([v, a], dim=-1)
-        fused = fused + self.cross_attention(fused, mask)
+        if self.config.fusion == "cross":
+            v = v + self.v_attends_a(v, a, mask)
+            a = a + self.a_attends_v(a, v, mask)
+            fused = torch.cat([v, a], dim=-1)
+        else:
+            fused = torch.cat([v, a], dim=-1)
+            fused = fused + self.cross_attention(fused, mask)
         x = F.relu(self.scorer_hidden(fused.to(self.scorer_hidden.weight.dtype)))
         scores = torch.sigmoid(self.scorer_out(x.float()))[..., 0]
         if mask is not None:

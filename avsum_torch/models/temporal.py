@@ -1,5 +1,7 @@
 """Temporal encoders (``avsum_tpu/models/temporal.py``): the BiLSTM
-(``:31-104``) and the attention encoder (``:107-170,309-318``).
+(``:31-104``), the attention encoder (``:107-170,309-318``), the dilated
+temporal convolutions (``:173-201``) and the deep staged attention
+encoder (``:204-306``).
 
 BiLSTM: the recurrence is a Python loop over time steps (the JAX
 package's ``lax.scan``); while ``torch.export`` traces it with a symbolic
@@ -14,6 +16,17 @@ default) -> self-attention -> dropout -> residual, LayerNorm -> Linear
 4x -> exact (erf) GELU -> Linear -> dropout -> residual, output times the
 mask. ``remat`` re-runs each block's forward in the backward pass
 (``torch.utils.checkpoint``), as ``nn.remat`` does in JAX.
+
+Temporal convolutions: per layer i, LayerNorm (epsilon 1e-6), times the
+mask, a 1-D convolution of kernel 5 and dilation 2^i with "SAME"
+padding, the tanh GELU (Flax's default), dropout and a residual; the
+output times the mask.
+
+Staged encoder: ``num_layers`` dropout-free attention blocks in
+``n_stages`` equal stages, run one after another (the JAX module's
+``lax.scan`` over its stacked stage parameters without a mesh); with
+``remat`` each stage is checkpointed. Its blocks, like the JAX ones, never
+take the flash kernel.
 
 Dropout follows Flax's ``nn.Dropout`` (keep with probability 1 - rate,
 scale kept values by 1 / (1 - rate)). Its masks come from explicit seeds:
@@ -165,6 +178,92 @@ class AttentionBlock(nn.Module):
         x = x + dropout(y, self.rate, seeds[0])
         y = self.dense_1(F.gelu(self.dense_0(self.norm_1(x))))
         x = x + dropout(y, self.rate, seeds[1])
+        if mask is not None:
+            x = x * mask.to(x.dtype)[..., None]
+        return x
+
+
+class TemporalConvEncoder(nn.Module):
+    """Dilated temporal convolutions over [B, S, hidden] (O(S) work)."""
+
+    def __init__(self, hidden: int, num_layers: int = 2, kernel: int = 5,
+                 dropout: float = 0.0, dtype=torch.float32):
+        super().__init__()
+        self.rate = dropout
+        self.norms = nn.ModuleList(
+            nn.LayerNorm(hidden, eps=LAYER_NORM_EPS) for _ in range(num_layers))
+        self.convs = nn.ModuleList(
+            nn.Conv1d(hidden, hidden, kernel, dilation=2 ** i, padding="same")
+            for i in range(num_layers))
+        self.to(dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``gen``: the CPU generator dropout seeds are drawn from (None:
+        no dropout)."""
+        m = None if mask is None else mask.to(x.dtype)[..., None]
+        for norm, conv in zip(self.norms, self.convs):
+            y = norm(x)
+            if m is not None:
+                y = y * m  # padding stays out of the convolution's window
+            y = conv(y.transpose(1, 2)).transpose(1, 2)
+            x = x + dropout(F.gelu(y, approximate="tanh"), self.rate,
+                            next_seed(gen))
+        if m is not None:
+            x = x * m
+        return x
+
+
+class StageBlocks(nn.Module):
+    """``layers`` dropout-free attention blocks: one stage of the staged
+    encoder."""
+
+    def __init__(self, dim: int, num_heads: int, layers: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            AttentionBlock(dim, num_heads, 0.0, dtype, use_kernel=False)
+            for _ in range(layers))
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, mask)
+        return x
+
+
+class PipelinedAttentionEncoder(nn.Module):
+    """Sinusoidal positions + ``n_stages`` stages of ``num_layers /
+    n_stages`` attention blocks each, in order; the output times the
+    mask. Running the stages on more than one device (GPipe) is not
+    ported."""
+
+    def __init__(self, hidden: int, num_layers: int = 12, n_stages: int = 4,
+                 num_heads: int = 4, dtype=torch.float32,
+                 remat: bool = False):
+        super().__init__()
+        if num_layers % n_stages != 0:
+            raise ValueError(
+                f"temporal_layers={num_layers} must divide into "
+                f"pp_stages={n_stages} equal stages")
+        self.remat = remat
+        self.stages = nn.ModuleList(
+            StageBlocks(hidden, num_heads, num_layers // n_stages, dtype)
+            for _ in range(n_stages))
+        self.to(dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``gen`` is accepted for the encoders' common call and unused:
+        the stages are dropout-free."""
+        del gen
+        _, s, f = x.shape
+        x = x + sinusoidal_positions(s, f, x.dtype, x.device)[None]
+        for stage in self.stages:
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(stage, x, mask, use_reentrant=False)
+            else:
+                x = stage(x, mask)
         if mask is not None:
             x = x * mask.to(x.dtype)[..., None]
         return x

@@ -5,10 +5,13 @@ so one artifact scores every padded bucket without any model code.
 The JAX package exports StableHLO for a list of platforms; here the
 program is exported on one device, and :func:`load_scorer` moves it to
 another with ``torch.export.passes.move_to_device_pass``. Inside the
-artifact every attention takes the materialized softmax and the BiLSTM
-the scan operator (``models/attention.py``, ``models/temporal.py``), as
-the JAX artifact runs its plain attention: the hand-written kernels are
-not traced into it.
+artifact every attention takes the materialized softmax (the chunked
+attention's float32 math as one chunk, when ``model.chunk_size`` > 0)
+and the BiLSTM the scan operator (``models/attention.py``,
+``models/temporal.py``), as the JAX artifact runs its plain attention:
+the hand-written kernels are not traced into it. The MoE gate's
+threshold top-k, the staged encoder's stages and the TCN's convolutions
+trace as they run.
 """
 
 from __future__ import annotations

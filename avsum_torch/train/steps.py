@@ -16,7 +16,7 @@
 
 PyTorch runs eagerly and updates parameters in place; the JAX step is a
 pure function of the state. Only one device is supported: a mesh of more
-than one raises (``ROADMAP.md`` A10).
+than one raises (parallelism is ``ROADMAP.md`` A6).
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def check_single_device(mesh: MeshShape) -> None:
     if big:
         raise ValueError(
             f"mesh {big} needs more than one device; avsum_torch trains on "
-            "one (parallelism is ROADMAP.md A10): set mesh.seq=1, "
+            "one (parallelism is ROADMAP.md A6): set mesh.seq=1, "
             "mesh.model=1 and mesh.data=1")
 
 

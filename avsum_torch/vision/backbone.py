@@ -111,6 +111,20 @@ class TinyBackbone(nn.Module):
         return self.dense(x.mean(dim=(2, 3)).float())
 
 
+class ResNetBackbone(nn.Module):
+    """ResNet50 alone (``visual.backbone: resnet50``) -> [B, 2048]: frames
+    normalized and resized to 224 in ``dtype``."""
+
+    def __init__(self, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.resnet = ResNet50()
+        self.to(dtype)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        return self.resnet(preprocess_frames(frames, 224, self.dtype))
+
+
 class DualBackbone(nn.Module):
     """ResNet50 ‖ InceptionV3 -> [B, 4096]: one normalization at the shipped
     resolution, then a resize to 224 and to 299 in ``dtype``."""
@@ -324,8 +338,10 @@ def sample_shot_frames(
 
 def make_backbone(config: VisualFeatConfig, seed: int = 0,
                   state_dict: Optional[dict] = None) -> nn.Module:
-    """The backbone for ``config.backbone`` (dual | tiny) with weights from
-    ``state_dict`` or, without one, seeded random ones."""
+    """The backbone for ``config.backbone`` (dual | resnet50 | vit | tiny)
+    in eval mode, with weights from ``state_dict`` or, without one, seeded
+    random ones.
+    The ViT is ``config.vit_variant`` at ``config.resnet_size``."""
     dtype = DTYPES[config.dtype]
     if config.weights:
         raise ValueError(
@@ -334,12 +350,28 @@ def make_backbone(config: VisualFeatConfig, seed: int = 0,
             "--visual V.npz --out w.pt`, then pass --weights w.pt")
     if config.backbone == "dual":
         model = DualBackbone(dtype)
+    elif config.backbone == "resnet50":
+        if config.feature_dim != 2048:
+            raise ValueError(
+                "backbone 'resnet50' emits 2048-d features; set "
+                "visual.feature_dim=2048 and model.visual_dim=2048 (load_config "
+                "does so when they are left at their defaults)")
+        model = ResNetBackbone(dtype)
+    elif config.backbone == "vit":
+        from avsum_torch.vision.vit import VIT_VARIANTS, ViTBackbone
+
+        if config.vit_variant not in VIT_VARIANTS:
+            raise ValueError(f"unknown vit_variant {config.vit_variant!r}; "
+                             f"options: {sorted(VIT_VARIANTS)}")
+        embed, depth, heads, cls = VIT_VARIANTS[config.vit_variant]
+        model = ViTBackbone(config.feature_dim, embed, depth, heads,
+                            config.resnet_size, cls_token=cls, dtype=dtype)
     elif config.backbone == "tiny":
         model = TinyBackbone(config.feature_dim, dtype)
     else:
-        raise ValueError(f"visual backbone {config.backbone!r} is not ported")
+        raise ValueError(f"unknown visual backbone {config.backbone!r}")
     if state_dict is None:
         fast_init_(model, seed)
     else:
         model.load_state_dict(state_dict)
-    return model
+    return model.eval()

@@ -60,11 +60,30 @@ raising on failure:
    the scorer exported on the card and scored in a process where
    ``avsum_torch`` cannot be imported, against the eager scorer (K2), and
    one request to ``serve --artifact``; (e) the knapsack DP on the card at
-   3200 shots x capacity 16200 against the NumPy DP.
+   3200 shots x capacity 16200 against the NumPy DP;
+11. BASELINE config 4, the upgraded encoders, at the phase 3 widths and
+   seed: (a) ``summarize`` of the short video (twice) and the long one
+   with the ViT-B/16 backbone (768 wide, 12 layers, 12 heads, class
+   token), the large audio encoder, cross fusion and the MoE encoder at
+   ``configs/moe_ep.yaml``'s widths (hidden 512, 8 experts, top 2, 2
+   layers): K1 on every call, scores against the CPU's plain path, the
+   summary within budget; (b) ``summarize`` of the long video with the
+   ResNet50-only backbone, the TCN encoder and self fusion, whose fusion
+   attention at S = 544 runs K2; (c) ``train`` through the CLI with
+   ``configs/moe_ep.yaml`` and then ``configs/deep_pp.yaml`` (12 blocks in
+   4 stages, hidden 512) at ``--set mesh.data=1 --set mesh.model=1`` on a
+   synthetic cache of 32 videos (``max_shots`` 128, batch 8), 2 epochs
+   then ``--resume``, and one step of each against the CPU's; (d) one
+   ``configs/hour_scale.yaml`` step at S = 7168 with
+   ``model.use_pallas=false`` (the fusion attention chunked) and its peak
+   memory; (e) the (a) scorer exported by ``export`` in a background
+   process started before phase 3, reloaded and scored against the
+   eager scorer. Each wall, stage second and peak memory is printed on a
+   line of its own after the card's line.
 
-Launch counts are reset just before each run of phases 3-5, 9 and 10 and
-read just after it; the comparisons of phases 6-8 and (d)'s eager
-scorer are not counted.
+Launch counts are reset just before each run of phases 3-5 and 9-11 and
+read just after it; the comparisons of phases 6-8 and 11 (c)-(e) and
+10 (d)'s eager scorer are not counted.
 
 The last three lines are the kernels' JSON, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -104,7 +123,20 @@ FEATURE_TOL = dict(rtol=1e-3, atol=1e-3)  # preprocess vs summarize features
 DEDUP_COS = 0.98  # dedup vs none, per-shot cosine (tests/test_dedup.py)
 DEDUP_THRESHOLD = 12.0  # mean |d luma| (tests/test_dedup.py's moderate one)
 KNAPSACK_RTOL = 1e-6  # device (float32) vs NumPy (float64) DP total value
-SEED = 0  # the random weights of phases 3, 4, 9 and 10
+SEED = 0  # the random weights of phases 3, 4, 9, 10 and 11
+MOE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "moe_ep.yaml")
+DEEP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "deep_pp.yaml")
+# phase 11 (a): ViT-B/16, the large audio encoder, cross fusion and the
+# MoE encoder at moe_ep.yaml's widths, over tvsum.yaml
+CONFIG4_A = ["visual.backbone=vit", "visual.vit_variant=b16",
+             "audio.encoder=large", "model.fusion=cross",
+             "model.temporal_encoder=moe", "model.moe_experts=8",
+             "model.moe_topk=2", "model.temporal_layers=2"]
+# phase 11 (b): ResNet50 alone, the TCN encoder, self fusion
+CONFIG4_B = ["visual.backbone=resnet50", "model.temporal_encoder=tcn"]
+ONE_DEVICE = ["mesh.data=1", "mesh.model=1"]
 MOVE_SHOTS = 64  # shots scored by the artifact moved to the CPU
 SHOT_TOL = 1e-3  # device shot scores, card vs CPU
 CLASSIC_CORR = 0.98  # classic vs fast path features (the JAX test's bound)
@@ -514,8 +546,10 @@ def _library_backward(qkv, mask, cot):
     return f"max|d grad| vs autograd of plain {err:.3e}", backward
 
 
-def _write_feature_cache(cache_dir: str, n: int, seed: int) -> None:
-    """``n`` videos of 600-1000 shots at 4096 / 296 dims, seeded."""
+def _write_feature_cache(cache_dir: str, n: int, seed: int,
+                         shots: tuple = (600, 1000)) -> None:
+    """``n`` videos of ``shots`` (least, most) shots at 4096 / 296 dims,
+    seeded."""
     import numpy as np
 
     from avsum_torch.data import FeatureCache
@@ -523,10 +557,10 @@ def _write_feature_cache(cache_dir: str, n: int, seed: int) -> None:
     rng = np.random.default_rng(seed)
     cache = FeatureCache(cache_dir)
     for i in range(n):
-        s = int(rng.integers(600, 1001))
+        s = int(rng.integers(shots[0], shots[1] + 1))
         ends = np.cumsum(rng.integers(30, 300, s))
         bounds = np.stack([np.concatenate([[0], ends[:-1]]), ends], 1)
-        cache.put(f"hour_{i}", rng.standard_normal((s, 4096), np.float32),
+        cache.put(f"video_{i}", rng.standard_normal((s, 4096), np.float32),
                   rng.standard_normal((s, 296), np.float32), bounds, 30.0,
                   int(ends[-1]))
 
@@ -596,10 +630,17 @@ def run_train(tmp: str) -> dict:
     return {k: first[k] + resumed[k] for k in first}
 
 
-def compare_train_step() -> None:
-    """The hour_scale train step on the card against the CPU: the same
-    parameters and batch (S = 600, a padded tail), dropout 0, lr 1e-4
-    from the second step on."""
+def compare_train_step(config: str = HOUR_CONFIG, sets=("mesh.seq=1",),
+                       batch_size: int = 1, s: int = 600,
+                       n_steps: int = 3) -> None:
+    """A train step of ``config`` on the card against the CPU: the same
+    parameters and batch (``batch_size`` x ``s`` shots, a padded tail),
+    dropout 0, lr 1e-4 from the second step on: the loss and gradients of
+    the first batch, then ``n_steps`` steps. Adam scales each entry's
+    update by that entry's own gradient, so an entry whose gradient lies
+    under the gradient check's noise floor (``GRAD_TOL`` of its tensor's
+    max |g|) moves by rounding noise on either device: those entries are
+    held by the gradient check, every other one to ``PARAM_TOL``."""
     import copy
 
     import numpy as np
@@ -609,15 +650,17 @@ def compare_train_step() -> None:
     from avsum_torch.train import steps
     from avsum_torch.train.config import load_config
 
-    cfg = load_config(HOUR_CONFIG, ["mesh.seq=1", "model.dropout=0",
-                                    "train.warmup_steps=1"])
+    cfg = load_config(config, [*sets, "model.dropout=0",
+                               "train.warmup_steps=1"])
     rng = np.random.default_rng(3)
-    s = 600
-    mask = np.ones((1, s), np.float32)
-    mask[0, 560:] = 0.0
-    batch = {"visual": rng.standard_normal((1, s, 4096), np.float32),
-             "audio": rng.standard_normal((1, s, 296), np.float32),
-             "targets": rng.random((1, s), np.float32) * mask, "mask": mask}
+    mask = np.ones((batch_size, s), np.float32)
+    mask[0, s - s // 15:] = 0.0
+    batch = {"visual": rng.standard_normal(
+                 (batch_size, s, cfg.model.visual_dim), np.float32),
+             "audio": rng.standard_normal(
+                 (batch_size, s, cfg.model.audio_dim), np.float32),
+             "targets": rng.random((batch_size, s), np.float32) * mask,
+             "mask": mask}
     cpu_model = make_model(cfg.model, seed=0)
     runs = {}
     for dev, model in (("cuda", copy.deepcopy(cpu_model).cuda()),
@@ -629,7 +672,7 @@ def compare_train_step() -> None:
                                 b["targets"], b["mask"])
         grads = torch.autograd.grad(loss, state.optimizer.params)
         step = steps.make_train_step(model, seed=0)
-        losses = [float(step(state, b)[1]["loss"]) for _ in range(3)]
+        losses = [float(step(state, b)[1]["loss"]) for _ in range(n_steps)]
         runs[dev] = (losses, [g.cpu() for g in grads],
                      {k: v.detach().cpu() for k, v in
                       model.state_dict().items()})
@@ -637,20 +680,32 @@ def compare_train_step() -> None:
     loss_err = max(abs(a - b) for a, b in zip(l_card, l_cpu))
     grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                    for a, b in zip(g_card, g_cpu))
-    worst = max(p_cpu, key=lambda k: (p_card[k] - p_cpu[k]).abs().max())
-    param_err = (p_card[worst] - p_cpu[worst]).abs().max().item()
+    errs, noisy, noisy_err = {}, 0, 0.0
+    for (name, _), g in zip(cpu_model.named_parameters(), g_cpu):
+        settled = g.abs() >= GRAD_TOL * g.abs().max()
+        d = (p_card[name] - p_cpu[name]).abs()
+        errs[name] = d[settled].max().item() if settled.any() else 0.0
+        noisy += int((~settled).sum())
+        if (~settled).any():
+            noisy_err = max(noisy_err, d[~settled].max().item())
+    worst = max(errs, key=errs.get)
+    param_err = errs[worst]
     moved = max((p_cpu[k] - v).abs().max().item()
                 for k, v in make_model(cfg.model, seed=0).state_dict().items())
-    print(f"train step card vs CPU: losses {l_card} / {l_cpu}, max|dloss| "
+    print(f"train step card vs CPU ({os.path.basename(config)}, "
+          f"[{batch_size}, {s}]): losses {l_card} / {l_cpu}, max|dloss| "
           f"{loss_err:.2e}, max grad error / max|g| {grad_err:.2e}, params "
-          f"after 3 steps max|d| {param_err:.2e} in {worst} (moved up to "
-          f"{moved:.2e})")
+          f"after {n_steps} steps max|d| {param_err:.2e} in {worst} (moved up "
+          f"to {moved:.2e}); {noisy} entries under the gradient's noise "
+          f"floor, max|d| {noisy_err:.2e} there")
     if loss_err > PARAM_TOL or grad_err > GRAD_TOL or param_err > PARAM_TOL:
         raise AssertionError("the card's train step disagrees with the CPU's")
 
 
-def hour_step() -> None:
-    """One train step at S = 7168 with remat, hidden 512 (dropout on)."""
+def hour_step(sets: tuple = (), label: str = "hour step",
+              profile: bool = True) -> None:
+    """One train step at S = 7168 with remat, hidden 512 (dropout on);
+    ``sets`` are further config overrides."""
     import numpy as np
     import torch
 
@@ -658,7 +713,7 @@ def hour_step() -> None:
     from avsum_torch.train import steps
     from avsum_torch.train.config import load_config
 
-    cfg = load_config(HOUR_CONFIG, ["mesh.seq=1", "model.remat=true"])
+    cfg = load_config(HOUR_CONFIG, ["mesh.seq=1", "model.remat=true", *sets])
     s = 7168
     rng = np.random.default_rng(0)
     batch = steps.batch_to_device({
@@ -680,12 +735,13 @@ def hour_step() -> None:
         loss = float(step(state, batch)[1]["loss"])
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"hour step [1, {s}] remat: first {first * 1e3:.1f} ms, warm "
+    print(f"{label} [1, {s}] remat: first {first * 1e3:.1f} ms, warm "
           f"{[round(t * 1e3, 1) for t in times]} ms, loss {loss:.5f}, peak "
           f"device memory {peak:.2f} GiB")
     if not np.isfinite(loss):
         raise AssertionError(f"hour step loss {loss}")
-    profile_step(lambda: float(step(state, batch)[1]["loss"]), steps=2)
+    if profile:
+        profile_step(lambda: float(step(state, batch)[1]["loss"]), steps=2)
 
 
 # kernel-name fragments -> the split of a profiled step
@@ -787,11 +843,12 @@ def run_summarize(pipeline, model, path: str, budget: float):
     return result, counts
 
 
-def check_against_cpu(pipeline, model, path: str, result: dict):
+def check_against_cpu(pipeline, model, path: str, result: dict,
+                      check_audio: bool = True):
     """The card's scorer against its plain path on the CPU, on the same
-    features; the MFCC / log-mel columns of the audio features (kernel
-    K1's outputs) against the CPU's plain versions -> the video's
-    ``ProcessedVideo``."""
+    features; with ``check_audio``, the MFCC / log-mel columns of the audio
+    features (kernel K1's outputs) against the CPU's plain versions -> the
+    video's ``ProcessedVideo``."""
     import numpy as np
     import torch
 
@@ -815,6 +872,8 @@ def check_against_cpu(pipeline, model, path: str, result: dict):
           f"rerun vs summarize max|d| {rerun:.3e}")
     if err > SCORE_TOL or rerun > SCORE_TOL:
         raise AssertionError(f"scores disagree: {err}, {rerun}")
+    if not check_audio:
+        return p
     cpu_audio = AudioFrontend(pipeline.config.audio, VGGish(), "cpu")
     wave = load_audio_mono_16k_ship(path[:-len(".y4m")] + ".wav")
     bounds = p.boundaries.astype(np.float64) / p.fps * 16000
@@ -1288,16 +1347,18 @@ np.save(sys.argv[3], out.cpu().numpy())
 """
 
 
-def start_export(tmp: str):
+def start_export(tmp: str, name: str = "scorer", sets: tuple = ()):
     """``export`` of the scorer through the CLI on the card, started in
-    the background (``--seed`` draws the phase 3 scorer's weights) -> (the
-    process, the artifact's path, its log's path)."""
-    art, err = f"{tmp}/scorer.pt2", f"{tmp}/export.log"
+    the background (``--seed`` draws the phase 3 scorer's weights; ``sets``
+    are config overrides) -> (the process, the artifact's path, its log's
+    path)."""
+    art, err = f"{tmp}/{name}.pt2", f"{tmp}/{name}_export.log"
     with open(err, "w") as fh:
         proc = subprocess.Popen(
             [sys.executable, "-m", "avsum_torch.cli", "export",
              "--random-init", "--seed", str(SEED), "--config",
-             TVSUM_CONFIG, "--device", "cuda", "--output", art],
+             TVSUM_CONFIG, "--device", "cuda", "--output", art,
+             *[a for x in sets for a in ("--set", x)]],
             stdout=subprocess.DEVNULL, stderr=fh)
     return proc, art, err
 
@@ -1453,6 +1514,177 @@ def run_serving(tmp: str, pipeline, model, vdir: str, export) -> dict:
     return {k: counts[k] + n_many[k] + served[k] for k in counts}
 
 
+def _peak_gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def config4_summarize(label: str, sets: list, videos: list, budget: float,
+                      card: str):
+    """Phase 11 (a) / (b): ``summarize`` of each video with ``sets`` over
+    tvsum.yaml at the phase 3 seed, each against the CPU's plain path ->
+    (summed K1 / K2 launches, the pipeline, the scorer)."""
+    import torch
+
+    from avsum_torch.cli.main import build_pipeline
+    from avsum_torch.train.config import load_config
+
+    cfg = load_config(TVSUM_CONFIG, sets)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipeline, model = build_pipeline(cfg, "cuda", seed=SEED)
+    print(f"phase 11 {label}: {' '.join(sets)}: random weights on the card "
+          f"in {time.perf_counter() - t0:.1f} s ({card})")
+    total, results = {"melspec": 0, "flash_fwd": 0}, {}
+    for path in videos:
+        results[path], counts = run_summarize(pipeline, model, path, budget)
+        if counts["melspec"] <= 0:
+            raise AssertionError(f"K1 did not run on {path}: {counts}")
+        total = {k: total[k] + counts[k] for k in total}
+    torch.cuda.synchronize()
+    print(f"phase 11 {label}: peak device memory {_peak_gib():.2f} GiB "
+          f"({card})")
+    for i, (path, result) in enumerate(results.items()):
+        # K1's outputs on the short video, as in phase 3; on the long one
+        # phase 6 holds K1 to its plain version at its waveform's length
+        check_against_cpu(pipeline, model, path, result,
+                          check_audio=i == 0 and path.endswith("short.y4m"))
+    return total, pipeline, model
+
+
+def config4_train(tmp: str, card: str) -> None:
+    """Phase 11 (c): ``train`` with moe_ep.yaml and deep_pp.yaml on one
+    device through the CLI (2 epochs, then ``--resume``), and one step of
+    each against the CPU's."""
+    import numpy as np
+
+    from avsum_torch.cli.main import main
+    from avsum_torch.ops import attention as att
+
+    _write_feature_cache(f"{tmp}/clips", 32, seed=13, shots=(60, 128))
+    for config in (MOE_CONFIG, DEEP_CONFIG):
+        name = os.path.basename(config)[:-len(".yaml")]
+        log_path = f"{tmp}/{name}.jsonl"
+        sets = [*ONE_DEVICE, f"data.cache_dir={tmp}/clips",
+                f"train.checkpoint_dir={tmp}/{name}_ckpt",
+                f"train.log_path={log_path}", "train.warmup_steps=2",
+                "train.log_every=1"]
+        for epochs, extra in ((2, []), (3, ["--resume"])):
+            args = [a for x in sets + [f"train.epochs={epochs}"]
+                    for a in ("--set", x)]
+            _reset_train_counts()
+            t0 = time.perf_counter()
+            rc = main(["train", "--config", config, "--device", "cuda",
+                       *extra, *args])
+            print(f"phase 11 (c) train {name} {extra} to epoch {epochs}: rc "
+                  f"{rc}, {time.perf_counter() - t0:.2f} s, launches "
+                  f"{_train_counts()} ({card})")
+            if rc != 0:
+                raise AssertionError(f"train {name} exited {rc}")
+        records = [json.loads(line) for line in open(log_path)]
+        losses = np.array([r["loss"] for r in records])
+        resumed = [r for r in records if r["step"] > 8]
+        if (len(records) != 12 or not np.isfinite(losses).all()
+                or resumed[0]["epoch"] != 2):
+            raise AssertionError(f"train {name}: {records}")
+        # steps 2-4 of the first epoch: no checkpoint is written between
+        dt = np.diff([r["time"] for r in records[:4]])[1:]
+        print(f"phase 11 (c) {name}: losses {np.round(losses, 5).tolist()}, "
+              f"warm step {1e3 * np.median(dt):.1f} ms (batch 8 x 128 shots, "
+              f"host clock; median of {len(dt)}) ({card})")
+        compare_train_step(config, ONE_DEVICE, batch_size=8, s=128,
+                           n_steps=2)
+    if att.flash_attention.launches:
+        raise AssertionError("a flash kernel ran at S = 128")
+
+
+def config4_hour_chunked(card: str) -> None:
+    """Phase 11 (d): one hour_scale.yaml step at S = 7168 with the kernel
+    off: the fusion attention takes the chunked path (chunk 512), the
+    encoders' attention is materialized, remat on."""
+    from avsum_torch.models import attention as attention_module
+    from avsum_torch.ops import attention as att
+
+    chunked = attention_module.chunked_attention
+    calls = []
+
+    def counted(*args):
+        calls.append(args[-1])
+        return chunked(*args)
+
+    attention_module.chunked_attention = counted
+    _reset_train_counts()
+    try:
+        hour_step(["model.use_pallas=false"], label=f"phase 11 (d) "
+                  f"use_pallas=false ({card}): hour step", profile=False)
+    finally:
+        attention_module.chunked_attention = chunked
+    print(f"phase 11 (d): chunked fusion calls {len(calls)} (chunk "
+          f"{set(calls)}), kernel launches {_train_counts()}")
+    if not calls or set(calls) != {512} or att.flash_attention.launches:
+        raise AssertionError("the hour step did not take the chunked path")
+
+
+def config4_export(tmp: str, export, pipeline, model, many: str,
+                   card: str) -> None:
+    """Phase 11 (e): the (a) scorer's artifact from the background
+    ``export``, loaded on the card and scored against the eager scorer on
+    the long video's padded features."""
+    import numpy as np
+    import torch
+
+    from avsum_torch.serve.export import load_scorer
+
+    proc, art, err = export
+    if proc.wait(timeout=900) != 0:
+        raise AssertionError(f"export exited {proc.returncode}: {_tail(err)}")
+    print(f"phase 11 (e) export (CLI, in the background since phase 3): "
+          f"{_tail(err, 400).strip().splitlines()[-1]} ({card})")
+    _, visual, audio, mask = pipeline.pad_scorer_inputs(
+        pipeline.process_video(many))
+    with torch.inference_mode():
+        eager = model(*(torch.from_numpy(a).cuda() for a in
+                        (visual, audio, mask))).cpu().numpy()
+    t0 = time.perf_counter()
+    scored = load_scorer(art, "cuda")(visual, audio, mask).cpu().numpy()
+    diff = float(np.abs(scored - eager).max())
+    print(f"phase 11 (e) artifact loaded and scored {list(mask.shape)} in "
+          f"{time.perf_counter() - t0:.2f} s, {os.path.getsize(art)} bytes, "
+          f"max|d| vs the eager scorer {diff:.3e} ({card})")
+    if diff > SCORE_TOL:
+        raise AssertionError(f"the config 4 artifact disagrees: {diff}")
+
+
+def run_config4(tmp: str, vdir: str, budget: float, export4,
+                card: str) -> dict:
+    """Phase 11 -> the launches of K1 and K2 in its summarize runs."""
+    import gc
+
+    import torch
+
+    short, many = f"{vdir}/short.y4m", f"{vdir}/many.y4m"
+    print(card)
+    t0 = time.perf_counter()
+    n_a, pipeline, model = config4_summarize(
+        "(a)", CONFIG4_A, [short, short, many], budget, card)
+    config4_export(tmp, export4, pipeline, model, many, card)
+    del pipeline, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_b, pipeline, model = config4_summarize("(b)", CONFIG4_B, [many],
+                                             budget, card)
+    if n_b["flash_fwd"] <= 0:
+        raise AssertionError(f"phase 11 (b): K2 did not run at S = 544: {n_b}")
+    del pipeline, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    config4_train(tmp, card)
+    config4_hour_chunked(card)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s ({card})")
+    return {k: n_a[k] + n_b[k] for k in n_a}
+
+
 def main() -> int:
     try:
         import torch
@@ -1477,18 +1709,19 @@ def main() -> int:
 
     cfg = load_config(TVSUM_CONFIG)
     with tempfile.TemporaryDirectory() as tmp:
-        export = start_export(tmp)
+        exports = (start_export(tmp), start_export(tmp, "config4", CONFIG4_A))
         try:
-            return _run_in(tmp, cfg, card, export)
+            return _run_in(tmp, cfg, card, *exports)
         finally:
-            if export[0].poll() is None:
-                export[0].kill()
-                export[0].wait()
+            for proc, _, _ in exports:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
-def _run_in(tmp: str, cfg, card: str, export) -> int:
-    """Phases 3-10 in ``tmp``, then the kernels' checks (phases 6-8) and
-    the result lines."""
+def _run_in(tmp: str, cfg, card: str, export, export4) -> int:
+    """Phases 3-5 and 9-11 in ``tmp``, then the kernels' checks (phases
+    6-8) and the result lines."""
     import torch
 
     from avsum_torch.cli.main import build_pipeline
@@ -1529,6 +1762,7 @@ def _run_in(tmp: str, cfg, card: str, export) -> int:
     n_train = run_train(tmp)
     n_data = run_dataset(tmp, pipeline, n_frames, fast_short)
     n_serve = run_serving(tmp, pipeline, model, vdir, export)
+    n_cfg4 = run_config4(tmp, vdir, budget, export4, card)
 
     k1 = check_k1(k1_samples)
     k2 = check_k2(s_pad)
@@ -1540,13 +1774,14 @@ def _run_in(tmp: str, cfg, card: str, export) -> int:
          "source": "avsum_torch/csrc/melspec.cu",
          "replaces": "avsum_tpu/ops/pallas_melspec.py:39",
          "launches": (n_short["melspec"] + n_many["melspec"]
-                      + n_data["melspec"] + n_serve["melspec"]), **k1},
+                      + n_data["melspec"] + n_serve["melspec"]
+                      + n_cfg4["melspec"]), **k1},
         {"name": "flash_fwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_fwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:42",
          "launches": (n_short["flash_fwd"] + n_many["flash_fwd"]
                       + n_train["flash_fwd"] + n_data["flash_fwd"]
-                      + n_serve["flash_fwd"]), **k2},
+                      + n_serve["flash_fwd"] + n_cfg4["flash_fwd"]), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:173",

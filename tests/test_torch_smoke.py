@@ -64,6 +64,8 @@ def test_port_module_imports_nothing_of_jax(path):
 def test_port_has_modules_to_walk():
     assert len(PORT_FILES) > 40
     assert "avsum_torch/io/native.py" in PORT_FILES
+    assert {"avsum_torch/models/moe.py", "avsum_torch/ops/chunked.py",
+            "avsum_torch/vision/vit.py"} <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("name", sorted(

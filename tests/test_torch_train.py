@@ -335,9 +335,9 @@ def test_dropout_active_in_train_mode_and_reproducible():
 
 
 def test_multi_device_mesh_and_precision_settings():
-    with pytest.raises(ValueError, match="A10"):
+    with pytest.raises(ValueError, match="A6"):
         steps.check_single_device(MeshShape(seq=4, auto_data=False))
-    with pytest.raises(ValueError, match="A10"):
+    with pytest.raises(ValueError, match="A6"):
         steps.check_single_device(MeshShape(data=2, auto_data=False))
     steps.check_single_device(MeshShape(data=2, auto_data=True))
     steps.apply_matmul_precision("highest")
