@@ -27,6 +27,12 @@ the feature cache (``data.cache_dir``) with the dataset's annotations,
 the train videos and evaluate on the test ones, ``--resume`` continues
 from the latest checkpoint at the epoch after it.
 
+``train`` and ``evaluate`` run at the config's mesh (``config.mesh``)
+with one process per rank: ``torchrun --nproc-per-node N -m
+avsum_torch.cli train --config C.yaml`` (``--backend gloo`` where the
+ranks share one card; NCCL is the default on the card, gloo on the CPU).
+Only the primary rank logs, prints and writes checkpoints.
+
 ``python -m avsum_torch.cli evaluate --splits S.json --fold K
 [--canonical]``: the scorer from the latest checkpoint in
 ``train.checkpoint_dir`` (random weights, with a warning, when there is
@@ -48,6 +54,7 @@ scorer as a ``torch.export`` artifact on ``--device``
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -243,6 +250,30 @@ def _load_examples(cfg: Config, video_ids=None):
     return load_cached_examples(cache, video_ids=video_ids)
 
 
+def _on_ranks(cmd):
+    """``cmd`` in ``torchrun``'s process group (none for one process),
+    which it leaves at its end; the ranks but the primary log warnings
+    only."""
+
+    @functools.wraps(cmd)
+    def run(args) -> int:
+        from avsum_torch.parallel import multihost
+        from avsum_torch.parallel.mesh import default_backend
+
+        if not multihost.initialize(
+                backend=args.backend or default_backend(args.device)):
+            return cmd(args)
+        if not multihost.is_primary():
+            logging.getLogger().setLevel(logging.WARNING)
+        try:
+            return cmd(args)
+        finally:
+            multihost.shutdown()
+
+    return run
+
+
+@_on_ranks
 def cmd_train(args) -> int:
     from avsum_torch.models.scorer import make_model
     from avsum_torch.train.trainer import Trainer
@@ -263,7 +294,7 @@ def cmd_train(args) -> int:
     steps_per_epoch = max(1, len(examples) // cfg.data.batch_videos)
     trainer = Trainer(make_model(cfg.model, seed=cfg.train.seed), cfg,
                       total_steps=steps_per_epoch * cfg.train.epochs,
-                      device=args.device)
+                      device=args.device, backend=args.backend)
 
     def batches(epoch: int):
         # the epoch folds into the shuffle seed: a fresh order per epoch
@@ -286,6 +317,7 @@ def cmd_train(args) -> int:
     return 0
 
 
+@_on_ranks
 def cmd_evaluate(args) -> int:
     from avsum_torch.data.batching import batch_iterator
     from avsum_torch.data.splits import load_splits
@@ -303,7 +335,7 @@ def cmd_evaluate(args) -> int:
         log.error("no eval examples found")
         return 1
     trainer = Trainer(make_model(cfg.model, seed=cfg.train.seed), cfg,
-                      device=args.device)
+                      device=args.device, backend=args.backend)
     trainer.init_state()
     if trainer.maybe_restore() is None:
         log.warning("no checkpoint found in %s; evaluating random init",
@@ -311,8 +343,10 @@ def cmd_evaluate(args) -> int:
     metrics = trainer.evaluate_videos(batch_iterator(
         examples, cfg.data.batch_videos, cfg.data.max_shots, shuffle=False))
     if args.canonical:
-        metrics.update(_canonical_eval(cfg, trainer, examples, args.device))
-    print(json.dumps(metrics))
+        metrics.update(_canonical_eval(cfg, trainer, examples,
+                                       trainer.device))
+    if trainer.mesh.is_primary:
+        print(json.dumps(metrics))
     return 0
 
 
@@ -414,6 +448,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "versions of the kernels)")
 
 
+def _add_backend(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend under torchrun (default "
+                        "nccl on cuda, gloo on cpu; gloo where ranks share "
+                        "one card)")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="avsum_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -436,6 +477,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     p = sub.add_parser("train", help="train the scorer")
     _add_common(p)
+    _add_backend(p)
     p.add_argument("--splits", default=None, help="splits JSON")
     p.add_argument("--fold", type=int, default=0)
     p.add_argument("--resume", action="store_true",
@@ -444,6 +486,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     p = sub.add_parser("evaluate", help="evaluate the latest checkpoint")
     _add_common(p)
+    _add_backend(p)
     p.add_argument("--splits", default=None, help="splits JSON")
     p.add_argument("--fold", type=int, default=0)
     p.add_argument("--canonical", action="store_true",

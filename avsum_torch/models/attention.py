@@ -2,6 +2,10 @@
 (``avsum_tpu/models/attention.py``).
 
 Self-attention takes the JAX module's dispatch, in its order:
+0. with ``ring_mesh`` (a mesh whose ``seq`` axis is > 1; x is this
+   rank's block of the shot axis), ring attention over that axis
+   (:func:`avsum_torch.parallel.ring.ring_attention`), in place of the
+   kernels;
 1. with the kernel enabled (``use_kernel``, resolved from
    ``model.use_pallas`` by :func:`kernel_enabled`), a sequence of a
    concrete length of at least ``FLASH_MIN_SEQ`` positions goes through
@@ -26,6 +30,7 @@ from torch import nn
 
 from avsum_torch.ops.attention import NEG_INF, flash_attention
 from avsum_torch.ops.chunked import chunked_attention
+from avsum_torch.parallel.ring import ring_attention
 
 FLASH_MIN_SEQ = 512
 
@@ -99,7 +104,7 @@ class MultiHeadSelfAttention(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int = 4,
                  dtype=torch.float32, use_kernel: bool = True,
-                 chunk_size: int = 0):
+                 chunk_size: int = 0, ring_mesh=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
@@ -107,6 +112,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.dtype = dtype
         self.use_kernel = use_kernel
         self.chunk_size = chunk_size
+        self.ring_mesh = ring_mesh
         self.qkv = nn.Linear(embed_dim, 3 * embed_dim)
         self.out = nn.Linear(embed_dim, embed_dim)
 
@@ -119,7 +125,9 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = qkv.unbind(2)  # [B, S, H, D] strided views
         # a symbolic S (torch.export) takes the materialized softmax, as
         # the JAX package's exported artifact does
-        if self.use_kernel and isinstance(s, int) and s >= FLASH_MIN_SEQ:
+        if self.ring_mesh is not None:
+            ctx = ring_attention(q, k, v, self.ring_mesh, mask)
+        elif self.use_kernel and isinstance(s, int) and s >= FLASH_MIN_SEQ:
             ctx = flash_attention(q, k, v, mask)
         elif self.chunk_size > 0:
             ctx = chunked_attention(q, k, v, mask, self.chunk_size)

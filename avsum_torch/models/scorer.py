@@ -18,14 +18,22 @@ scorer_out). ``model.use_pallas`` reaches every self-attention through
 :func:`avsum_torch.models.attention.kernel_enabled`; the MoE blocks, the
 stages and cross fusion materialize their attention as the JAX ones do.
 Dropout is active only in ``train()`` mode and draws its masks from the
-generator passed to ``forward``. Every variant runs on one device; the
-mesh-parallel forms (GPipe stages, sharded experts, ring attention) are
-not ported (``ROADMAP.md`` A6).
+generator passed to ``forward``.
+
+On a mesh (``AVScorer(config, mesh)``, the rank's block [B / data, S /
+seq] of the batch; :func:`to_mesh` makes it from a one-device scorer)
+the JAX scorer's mesh plumbing holds: with ``seq`` > 1 the attention
+encoder's and the self fusion's attention run as ring attention; with
+``model`` > 1 the MoE encoder's experts are split over the axis and the
+staged encoder's stages run as a GPipe schedule (``pp_stages`` must
+equal the axis). Cross fusion, the MoE blocks' attention, the BiLSTM and
+the convolutions have no ring in JAX: with ``seq`` > 1 they gather the
+shot axis and keep the rank's block.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,72 +45,90 @@ from avsum_torch.models.attention import (
     MultiHeadSelfAttention,
     kernel_enabled,
 )
-from avsum_torch.models.moe import MoEEncoder
+from avsum_torch.models.moe import EXPERT_PARAMS, MoEEncoder, MoEFFN
 from avsum_torch.models.temporal import (
     AttentionEncoder,
     BiLSTM,
     PipelinedAttentionEncoder,
     TemporalConvEncoder,
     dropout,
+    gather_shots,
     next_seed,
+    seq_split,
 )
+from avsum_torch.parallel.comm import local_block
+from avsum_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ, shard_tensors
 from avsum_torch.train.config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def make_temporal(config: ModelConfig, use_kernel: bool) -> nn.Module:
+def make_temporal(config: ModelConfig, use_kernel: bool,
+                  mesh=None) -> nn.Module:
     """One modality's temporal encoder for ``config.temporal_encoder``."""
     dtype = DTYPES[config.dtype]
     hid, kind = config.hidden_dim, config.temporal_encoder
     if kind == "bilstm":
-        return BiLSTM(hid, hid, dtype)
+        return BiLSTM(hid, hid, dtype, mesh)
     if kind == "attention" and config.pp_stages > 1:
         return PipelinedAttentionEncoder(hid, config.temporal_layers,
                                          config.pp_stages, config.num_heads,
-                                         dtype, config.remat)
+                                         dtype, config.remat, mesh)
     if kind == "attention":
         return AttentionEncoder(hid, config.temporal_layers, config.num_heads,
                                 config.dropout, dtype, use_kernel,
-                                config.remat).to(dtype)
+                                config.remat, mesh).to(dtype)
     if kind == "moe":
         return MoEEncoder(hid, config.temporal_layers, config.num_heads,
                           config.moe_experts, config.moe_topk, config.dropout,
-                          dtype)
+                          dtype, mesh)
     if kind == "tcn":
         return TemporalConvEncoder(hid, config.temporal_layers,
-                                   dropout=config.dropout, dtype=dtype)
+                                   dropout=config.dropout, dtype=dtype,
+                                   mesh=mesh)
     raise ValueError(f"unknown temporal encoder {kind!r}")
 
 
 class ModalityMLP(nn.Module):
     def __init__(self, in_features: int, hidden: int, rate: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, mesh=None):
         super().__init__()
         self.dtype = dtype
         self.rate = rate
+        self.mesh = mesh
         self.dense = nn.Linear(in_features, hidden)
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
-        return dropout(F.relu(self.dense(x.to(self.dtype))), self.rate, seed)
+        return dropout(F.relu(self.dense(x.to(self.dtype))), self.rate, seed,
+                       self.mesh)
 
 
 class AVScorer(nn.Module):
-    """Per-shot importance scores in [0, 1]; masked positions score 0."""
+    """Per-shot importance scores in [0, 1]; masked positions score 0.
 
-    def __init__(self, config: ModelConfig = ModelConfig()):
+    ``mesh``: a :class:`avsum_torch.parallel.mesh.Mesh` (None: one
+    device); the scorer then takes and returns this rank's block."""
+
+    def __init__(self, config: ModelConfig = ModelConfig(), mesh=None):
         super().__init__()
         self.config = config
+        self.mesh = mesh
         dtype = DTYPES[config.dtype]
         hid = config.hidden_dim
         use_kernel = kernel_enabled(config.use_pallas)
+        if (mesh is not None and config.pp_stages > 1
+                and 1 < mesh.size(AXIS_MODEL) != config.pp_stages):
+            raise ValueError(
+                f"model.pp_stages={config.pp_stages} must equal the mesh's "
+                f"model axis size {mesh.size(AXIS_MODEL)} (one stage per "
+                "device)")
         self.visual_fc = ModalityMLP(config.visual_dim, hid, config.dropout,
-                                     dtype)
+                                     dtype, mesh)
         self.audio_fc = ModalityMLP(config.audio_dim, hid, config.dropout,
-                                    dtype)
-        self.visual_temporal = make_temporal(config, use_kernel)
-        self.audio_temporal = make_temporal(config, use_kernel)
+                                    dtype, mesh)
+        self.visual_temporal = make_temporal(config, use_kernel, mesh)
+        self.audio_temporal = make_temporal(config, use_kernel, mesh)
         if config.fusion == "cross":
             self.v_attends_a, self.a_attends_v = (
                 MultiHeadCrossAttention(hid, config.num_heads, dtype).to(dtype)
@@ -110,7 +136,8 @@ class AVScorer(nn.Module):
         else:
             self.cross_attention = MultiHeadSelfAttention(
                 2 * hid, config.num_heads, dtype, use_kernel,
-                config.chunk_size).to(dtype)
+                config.chunk_size,
+                ring_mesh=mesh if seq_split(mesh) else None).to(dtype)
         self.scorer_hidden = nn.Linear(2 * hid, config.scorer_hidden)
         self.scorer_out = nn.Linear(config.scorer_hidden, 1)
         for mod in (self.visual_fc, self.audio_fc, self.scorer_hidden):
@@ -136,9 +163,12 @@ class AVScorer(nn.Module):
             v = self.visual_temporal(v, mask, gen)
             a = self.audio_temporal(a, mask, gen)
         if self.config.fusion == "cross":
-            v = v + self.v_attends_a(v, a, mask)
-            a = a + self.a_attends_v(a, v, mask)
-            fused = torch.cat([v, a], dim=-1)
+            v, full_mask = gather_shots(v, mask, self.mesh)
+            a, _ = gather_shots(a, None, self.mesh)
+            v = v + self.v_attends_a(v, a, full_mask)
+            a = a + self.a_attends_v(a, v, full_mask)
+            fused = local_block(torch.cat([v, a], dim=-1), self.mesh,
+                                AXIS_SEQ)
         else:
             fused = torch.cat([v, a], dim=-1)
             fused = fused + self.cross_attention(fused, mask)
@@ -147,6 +177,28 @@ class AVScorer(nn.Module):
         if mask is not None:
             scores = scores * mask.to(scores.dtype)
         return scores
+
+
+    def split_names(self) -> List[str]:
+        """The parameters whose leading axis is split over ``model`` (the
+        experts under expert parallelism); every other one is whole on
+        the ranks that hold it."""
+        return [f"{path}.{name}" for path, mod in self.named_modules()
+                if isinstance(mod, MoEFFN) and mod.ep_mesh is not None
+                for name in EXPERT_PARAMS]
+
+
+def to_mesh(model: AVScorer, mesh) -> AVScorer:
+    """``model`` (one-device layout) on ``mesh``: a scorer of the same
+    config built for the mesh, holding this rank's share of ``model``'s
+    parameters, on the mesh's device, in ``model``'s mode."""
+    if mesh.world == 1:
+        return model.to(mesh.device)
+    local = AVScorer(model.config, mesh)
+    shapes = {k: tuple(v.shape) for k, v in local.state_dict().items()}
+    local.load_state_dict(shard_tensors(model.state_dict(), shapes,
+                                        local.split_names(), mesh))
+    return local.to(mesh.device).train(model.training)
 
 
 def make_model(config: ModelConfig = ModelConfig(), seed: int = 0,

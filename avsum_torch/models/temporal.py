@@ -28,11 +28,24 @@ Staged encoder: ``num_layers`` dropout-free attention blocks in
 ``remat`` each stage is checkpointed. Its blocks, like the JAX ones, never
 take the flash kernel.
 
+On a mesh (``mesh``, :mod:`avsum_torch.parallel.mesh`; x is this rank's
+block [B / data, S / seq, F]): the attention encoder runs ring attention
+over ``seq`` when it is > 1, its positions those of the rank's global
+shots; the staged encoder runs its stages as a GPipe schedule over
+``model`` when that is > 1 (the rank holds ``stages.{m}`` only,
+:func:`avsum_torch.parallel.pipeline.pipeline_apply`). The BiLSTM, the
+convolutions and the staged encoder mix the shot axis without a ring, as
+in JAX, so with ``seq`` > 1 they gather it, run on the whole axis and
+keep the rank's block (the gather's backward sums the cotangents over
+``seq``).
+
 Dropout follows Flax's ``nn.Dropout`` (keep with probability 1 - rate,
 scale kept values by 1 / (1 - rate)). Its masks come from explicit seeds:
 each dropout site draws one integer from the CPU ``torch.Generator`` the
 caller passes and seeds a generator on the tensor's device with it, so a
-checkpointed block draws the same masks when it is run again.
+checkpointed block draws the same masks when it is run again. On a mesh
+the mask is drawn at the global shape and the rank keeps its block, so
+the masks are those of the one-device run of the same padded batch.
 """
 
 from __future__ import annotations
@@ -46,6 +59,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from avsum_torch.models.attention import MultiHeadSelfAttention
+from avsum_torch.parallel.comm import gather, local_block
+from avsum_torch.parallel.mesh import (
+    AXIS_MODEL,
+    AXIS_SEQ,
+    global_block,
+    seq_offset,
+)
+from avsum_torch.parallel.pipeline import pipeline_apply
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -58,14 +79,32 @@ def next_seed(gen: Optional[torch.Generator]) -> Optional[int]:
     return int(torch.randint(0, 2 ** 62, (), generator=gen))
 
 
-def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int], mesh=None,
+            seq_sharded: bool = True) -> torch.Tensor:
     """Flax's dropout with the mask drawn from ``seed``; identity when
-    ``seed`` is None or ``rate`` is 0."""
+    ``seed`` is None or ``rate`` is 0. On ``mesh`` the mask is drawn at
+    the global shape of the [B, S, ...] block ``x`` (its shot axis split
+    over ``seq`` when ``seq_sharded``) and sliced."""
     if seed is None or rate == 0.0:
         return x
+    shape, index = global_block(mesh, x.shape, seq_sharded)
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    keep = (torch.rand(shape, generator=gen, device=x.device) >= rate)[index]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def seq_split(mesh) -> bool:
+    """True when ``mesh`` splits the shot axis."""
+    return mesh is not None and mesh.size(AXIS_SEQ) > 1
+
+
+def gather_shots(x: torch.Tensor, mask: Optional[torch.Tensor], mesh):
+    """(x, mask) with the whole shot axis, for a module that mixes it
+    without a ring."""
+    if not seq_split(mesh):
+        return x, mask
+    return (gather(x, mesh, AXIS_SEQ),
+            None if mask is None else gather(mask, mesh, AXIS_SEQ))
 
 
 class LSTMCellScan(nn.Module):
@@ -125,25 +164,31 @@ class LSTMCellScan(nn.Module):
 class BiLSTM(nn.Module):
     """Forward and backward halves concatenated: [B, S, F] -> [B, S, hidden]."""
 
-    def __init__(self, in_features: int, hidden: int, dtype=torch.float32):
+    def __init__(self, in_features: int, hidden: int, dtype=torch.float32,
+                 mesh=None):
         super().__init__()
         half = hidden // 2
+        self.mesh = mesh
         self.fwd = LSTMCellScan(in_features, half, dtype, reverse=False)
         self.bwd = LSTMCellScan(in_features, half, dtype, reverse=True)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x, mask = gather_shots(x, mask, self.mesh)
         out = torch.cat([self.fwd(x, mask), self.bwd(x, mask)], dim=-1)
         if mask is not None:
             out = out * mask.to(out.dtype)[..., None]
-        return out
+        return local_block(out, self.mesh, AXIS_SEQ)
 
 
 def sinusoidal_positions(seq_len: int, dim: int, dtype=torch.float32,
-                         device=None) -> torch.Tensor:
+                         device=None, offset: int = 0) -> torch.Tensor:
     """Sinusoidal position table [S, dim]: [sin | cos] halves, computed in
-    float32 as the JAX function does; an odd ``dim`` gets a zero column."""
-    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    float32 as the JAX function does; an odd ``dim`` gets a zero column.
+    ``offset``: the rows from that position on (a block of a longer
+    table)."""
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32,
+                       device=device)[:, None]
     half = dim // 2
     log_base = torch.tensor(math.log(10000.0), dtype=torch.float32,
                             device=device)
@@ -161,12 +206,14 @@ class AttentionBlock(nn.Module):
     """Pre-norm bidirectional attention block ([B, S, dim] -> same)."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
-                 dtype=torch.float32, use_kernel: bool = True):
+                 dtype=torch.float32, use_kernel: bool = True, mesh=None):
         super().__init__()
         self.rate = dropout
+        self.mesh = mesh
         self.norm_0 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.attention = MultiHeadSelfAttention(dim, num_heads, dtype,
-                                                use_kernel)
+        self.attention = MultiHeadSelfAttention(
+            dim, num_heads, dtype, use_kernel,
+            ring_mesh=mesh if seq_split(mesh) else None)
         self.norm_1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.dense_0 = nn.Linear(dim, 4 * dim)
         self.dense_1 = nn.Linear(4 * dim, dim)
@@ -175,9 +222,9 @@ class AttentionBlock(nn.Module):
                 seeds: Tuple[Optional[int], Optional[int]] = (None, None)
                 ) -> torch.Tensor:
         y = self.attention(self.norm_0(x), mask)
-        x = x + dropout(y, self.rate, seeds[0])
+        x = x + dropout(y, self.rate, seeds[0], self.mesh)
         y = self.dense_1(F.gelu(self.dense_0(self.norm_1(x))))
-        x = x + dropout(y, self.rate, seeds[1])
+        x = x + dropout(y, self.rate, seeds[1], self.mesh)
         if mask is not None:
             x = x * mask.to(x.dtype)[..., None]
         return x
@@ -187,9 +234,10 @@ class TemporalConvEncoder(nn.Module):
     """Dilated temporal convolutions over [B, S, hidden] (O(S) work)."""
 
     def __init__(self, hidden: int, num_layers: int = 2, kernel: int = 5,
-                 dropout: float = 0.0, dtype=torch.float32):
+                 dropout: float = 0.0, dtype=torch.float32, mesh=None):
         super().__init__()
         self.rate = dropout
+        self.mesh = mesh
         self.norms = nn.ModuleList(
             nn.LayerNorm(hidden, eps=LAYER_NORM_EPS) for _ in range(num_layers))
         self.convs = nn.ModuleList(
@@ -201,6 +249,7 @@ class TemporalConvEncoder(nn.Module):
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """``gen``: the CPU generator dropout seeds are drawn from (None:
         no dropout)."""
+        x, mask = gather_shots(x, mask, self.mesh)
         m = None if mask is None else mask.to(x.dtype)[..., None]
         for norm, conv in zip(self.norms, self.convs):
             y = norm(x)
@@ -208,10 +257,10 @@ class TemporalConvEncoder(nn.Module):
                 y = y * m  # padding stays out of the convolution's window
             y = conv(y.transpose(1, 2)).transpose(1, 2)
             x = x + dropout(F.gelu(y, approximate="tanh"), self.rate,
-                            next_seed(gen))
+                            next_seed(gen), self.mesh, seq_sharded=False)
         if m is not None:
             x = x * m
-        return x
+        return local_block(x, self.mesh, AXIS_SEQ)
 
 
 class StageBlocks(nn.Module):
@@ -235,21 +284,31 @@ class StageBlocks(nn.Module):
 class PipelinedAttentionEncoder(nn.Module):
     """Sinusoidal positions + ``n_stages`` stages of ``num_layers /
     n_stages`` attention blocks each, in order; the output times the
-    mask. Running the stages on more than one device (GPipe) is not
-    ported."""
+    mask. With a mesh whose ``model`` axis is > 1 (it must equal
+    ``n_stages``) the stages run as a GPipe schedule, one per rank, and
+    ``stages`` holds only this rank's (the others are empty modules, so
+    the state_dict's names are those of the one-device layout)."""
 
     def __init__(self, hidden: int, num_layers: int = 12, n_stages: int = 4,
                  num_heads: int = 4, dtype=torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, mesh=None):
         super().__init__()
         if num_layers % n_stages != 0:
             raise ValueError(
                 f"temporal_layers={num_layers} must divide into "
                 f"pp_stages={n_stages} equal stages")
         self.remat = remat
+        self.n_stages = n_stages
+        self.mesh = mesh
+        self.pp = mesh is not None and mesh.size(AXIS_MODEL) > 1
+        if self.pp and mesh.size(AXIS_MODEL) != n_stages:
+            raise ValueError(
+                f"model.pp_stages={n_stages} must equal the mesh's model "
+                f"axis size {mesh.size(AXIS_MODEL)} (one stage per device)")
+        mine = mesh.index(AXIS_MODEL) if self.pp else None
         self.stages = nn.ModuleList(
             StageBlocks(hidden, num_heads, num_layers // n_stages, dtype)
-            for _ in range(n_stages))
+            if mine in (None, i) else nn.Module() for i in range(n_stages))
         self.to(dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -257,16 +316,25 @@ class PipelinedAttentionEncoder(nn.Module):
         """``gen`` is accepted for the encoders' common call and unused:
         the stages are dropout-free."""
         del gen
-        _, s, f = x.shape
+        x, mask = gather_shots(x, mask, self.mesh)
+        b, s, f = x.shape
         x = x + sinusoidal_positions(s, f, x.dtype, x.device)[None]
-        for stage in self.stages:
-            if self.remat and torch.is_grad_enabled():
-                x = checkpoint(stage, x, mask, use_reentrant=False)
-            else:
-                x = stage(x, mask)
+        if self.pp:
+            n_micro = b if b % self.n_stages == 0 else math.gcd(b,
+                                                                self.n_stages)
+            x = pipeline_apply(self.stages[self.mesh.index(AXIS_MODEL)], x,
+                               self.mesh, mask, n_stages=self.n_stages,
+                               num_microbatches=min(n_micro, b),
+                               remat=self.remat)
+        else:
+            for stage in self.stages:
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(stage, x, mask, use_reentrant=False)
+                else:
+                    x = stage(x, mask)
         if mask is not None:
             x = x * mask.to(x.dtype)[..., None]
-        return x
+        return local_block(x, self.mesh, AXIS_SEQ)
 
 
 class AttentionEncoder(nn.Module):
@@ -274,11 +342,13 @@ class AttentionEncoder(nn.Module):
 
     def __init__(self, hidden: int, num_layers: int = 2, num_heads: int = 4,
                  dropout: float = 0.0, dtype=torch.float32,
-                 use_kernel: bool = True, remat: bool = False):
+                 use_kernel: bool = True, remat: bool = False, mesh=None):
         super().__init__()
         self.remat = remat
+        self.mesh = mesh
         self.blocks = nn.ModuleList(
-            AttentionBlock(hidden, num_heads, dropout, dtype, use_kernel)
+            AttentionBlock(hidden, num_heads, dropout, dtype, use_kernel,
+                           mesh)
             for _ in range(num_layers))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -286,7 +356,8 @@ class AttentionEncoder(nn.Module):
         """``gen``: the CPU generator dropout seeds are drawn from (None:
         no dropout)."""
         _, s, f = x.shape
-        x = x + sinusoidal_positions(s, f, x.dtype, x.device)[None]
+        x = x + sinusoidal_positions(s, f, x.dtype, x.device,
+                                     seq_offset(self.mesh, s))[None]
         for block in self.blocks:
             seeds = (next_seed(gen), next_seed(gen))
             if self.remat and torch.is_grad_enabled():

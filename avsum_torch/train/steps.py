@@ -14,9 +14,19 @@
   step), the counterpart of ``fold_in(PRNGKey(seed), step)``, so a resumed
   run draws the masks an uninterrupted one would.
 
+On a mesh (:mod:`avsum_torch.parallel.mesh`) each rank steps on its block
+of the padded batch (:func:`shard_batch_dict`) and the step computes what
+the one-device step computes on that padded batch: the loss divides each
+rank's sum of squared errors by the mask count of the whole batch, the
+gradients of every parameter are summed over the ranks that share its
+``model`` coordinate (``data`` x ``seq``), and the global norm counts each
+parameter once: the replicated ones on this rank, the ones split over
+``model`` (experts, pipeline stages) summed over it. Every ``model`` rank
+computes the same loss, so nothing is summed over ``model`` but those
+squares.
+
 PyTorch runs eagerly and updates parameters in place; the JAX step is a
-pure function of the state. Only one device is supported: a mesh of more
-than one raises (parallelism is ``ROADMAP.md`` A6).
+pure function of the state.
 """
 
 from __future__ import annotations
@@ -29,7 +39,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from avsum_torch.train.config import MeshShape, TrainConfig
+from avsum_torch.parallel.comm import all_reduce
+from avsum_torch.parallel.mesh import (  # noqa: F401  (the JAX names)
+    AXIS_MODEL,
+    REPLICA,
+    pad_batch_for_mesh,
+    shard_batch as shard_batch_dict,
+)
+from avsum_torch.train.config import TrainConfig
 
 Batch = Dict[str, torch.Tensor]  # visual, audio, targets, mask
 
@@ -52,19 +69,6 @@ def apply_matmul_precision(name: str) -> None:
         raise ValueError(f"unknown train.matmul_precision {name!r}")
     torch.set_float32_matmul_precision(_PRECISION[name])
     torch.backends.cudnn.allow_tf32 = _PRECISION[name] != "highest"
-
-
-def check_single_device(mesh: MeshShape) -> None:
-    """The port trains on one device: a mesh with more raises."""
-    sizes = {"seq": mesh.seq, "model": mesh.model}
-    if not mesh.auto_data:
-        sizes["data"] = mesh.data
-    big = {k: n for k, n in sizes.items() if n > 1}
-    if big:
-        raise ValueError(
-            f"mesh {big} needs more than one device; avsum_torch trains on "
-            "one (parallelism is ROADMAP.md A6): set mesh.seq=1, "
-            "mesh.model=1 and mesh.data=1")
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
@@ -107,14 +111,18 @@ class AdamW:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Apply one update; -> the global norm of ``grads`` (unclipped).
+    def step(self, grads: Sequence[torch.Tensor],
+             g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Apply one update; -> the global norm of ``grads`` (unclipped),
+        or ``g_norm`` when the caller gives it (the mesh's global norm).
 
         Multi-tensor (``torch._foreach_*``) ops, so an update is a few
         launches whatever the number of parameters, and no value is read
         back to the host."""
         grads = list(grads)
-        g_norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+        if g_norm is None:
+            g_norm = torch.stack(torch._foreach_norm(grads)).square().sum(
+                ).sqrt()
         scale = torch.where(g_norm < self.max_norm, 1.0,
                             self.max_norm / g_norm)
         grads = torch._foreach_mul(grads, scale)
@@ -180,43 +188,113 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Batch:
             for k, v in batch.items()}
 
 
-def make_train_step(model: nn.Module, seed: int = 0, ema_decay: float = 0.0
+def _model_split(model: nn.Module) -> set:
+    """Names of the parameters split over ``model``: the experts and the
+    stages this rank holds."""
+    names = set(getattr(model, "split_names", list)())
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and mesh.size(AXIS_MODEL) > 1:
+        names |= {n for n, _ in model.named_parameters() if ".stages." in n}
+    return names
+
+
+def _sum_over(tensors: List[torch.Tensor], mesh, axis: str
+              ) -> List[torch.Tensor]:
+    """Each tensor summed over ``axis``, one collective per dtype."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    for dtype in {t.dtype for t in tensors}:
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        flat = all_reduce(torch.cat([tensors[i].reshape(-1) for i in idx]),
+                          mesh, axis)
+        at = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[at:at + n].view_as(tensors[i])
+            at += n
+    return out
+
+
+def global_norm(grads: Sequence[torch.Tensor], split: Sequence[bool],
+                mesh=None) -> torch.Tensor:
+    """The norm of the whole model's gradient: the squares of the
+    replicated gradients here, those of the ``split`` ones summed over
+    ``model``."""
+    sq = [g.float().square().sum() for g in grads]
+    zero = torch.zeros((), device=grads[0].device)
+    rep = sum((q for q, s in zip(sq, split) if not s), zero)
+    shard = sum((q for q, s in zip(sq, split) if s), zero)
+    return (rep + all_reduce(shard, mesh, AXIS_MODEL)).sqrt()
+
+
+def _mesh_loss(preds, batch, mesh):
+    """(this rank's share of the global masked MSE, the global count)."""
+    m = batch["mask"].float()
+    count = all_reduce(m.sum(), mesh, REPLICA).clamp_min(1.0)
+    se = (preds.float() - batch["targets"].float()) ** 2
+    return (se * m).sum() / count
+
+
+def make_train_step(model: nn.Module, mesh=None, seed: int = 0,
+                    ema_decay: float = 0.0
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """-> ``train_step(state, batch) -> (state, metrics)``; metrics are
     device scalars (loss, grad_norm, pred_mean), read by the caller when
-    it needs them."""
+    it needs them. With ``mesh`` the batch is this rank's block and the
+    metrics are those of the whole batch."""
+    if mesh is not None and mesh.world == 1:
+        mesh = None
+    split_names = _model_split(model) if mesh is not None else set()
+    split = [n in split_names for n, _ in model.named_parameters()]
 
     def train_step(state: TrainState, batch: Batch):
         model.train()
         preds = model(batch["visual"], batch["audio"], batch["mask"],
                       generator=dropout_generator(seed, state.step))
-        loss = masked_mse(preds, batch["targets"], batch["mask"])
         params: List[torch.Tensor] = state.optimizer.params
-        grads = torch.autograd.grad(loss, params)
-        grad_norm = state.optimizer.step(grads)
+        if mesh is None:
+            loss = masked_mse(preds, batch["targets"], batch["mask"])
+            grads = torch.autograd.grad(loss, params)
+            grad_norm = state.optimizer.step(grads)
+            pred_mean = preds.detach().mean()
+        else:
+            loss = _mesh_loss(preds, batch, mesh)
+            grads = _sum_over(list(torch.autograd.grad(loss, params)), mesh,
+                              REPLICA)
+            grad_norm = state.optimizer.step(
+                grads, global_norm(grads, split, mesh))
+            loss = all_reduce(loss.detach(), mesh, REPLICA)
+            pred_mean = all_reduce(preds.detach().sum(), mesh, REPLICA) / (
+                preds.numel() * mesh.size(REPLICA))
         if ema_decay > 0:
             with torch.no_grad():
                 ema = [state.ema[name] for name, _ in model.named_parameters()]
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
-                   "pred_mean": preds.detach().mean()}
+                   "pred_mean": pred_mean}
         return state, metrics
 
     return train_step
 
 
-def make_eval_step(model: nn.Module
+def make_eval_step(model: nn.Module, mesh=None
                    ) -> Callable[[Dict[str, torch.Tensor], Batch], Dict]:
     """-> ``eval_step(params, batch) -> {"preds", "loss"}``: the model in
-    eval mode with ``params`` (name -> tensor) in place of its own."""
+    eval mode with ``params`` (name -> tensor) in place of its own. With
+    ``mesh``: this rank's block of the predictions, the whole batch's
+    loss."""
+    if mesh is not None and mesh.world == 1:
+        mesh = None
 
     @torch.no_grad()
     def eval_step(params: Dict[str, torch.Tensor], batch: Batch):
         model.eval()
         preds = torch.func.functional_call(
             model, params, (batch["visual"], batch["audio"], batch["mask"]))
-        return {"preds": preds,
-                "loss": masked_mse(preds, batch["targets"], batch["mask"])}
+        if mesh is None:
+            loss = masked_mse(preds, batch["targets"], batch["mask"])
+        else:
+            loss = all_reduce(_mesh_loss(preds, batch, mesh), mesh, REPLICA)
+        return {"preds": preds, "loss": loss}
 
     return eval_step

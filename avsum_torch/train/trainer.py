@@ -4,6 +4,12 @@ an eval hook, checkpoints, and scoring of whole videos.
 
 The train step's metrics stay on the device except at ``log_every``
 steps and once per epoch, where the host reads them.
+
+The mesh comes from ``config.mesh`` and the world (``torchrun`` starts
+one process per rank; a mesh larger than the world raises, naming that
+command). Every rank reads the same shuffled batches and keeps its block;
+the primary rank alone logs and writes checkpoints; ``score_video`` and
+``evaluate_videos`` gather the predictions over ``data`` x ``seq``.
 """
 
 from __future__ import annotations
@@ -17,17 +23,24 @@ import torch
 from torch import nn
 
 from avsum_torch.data.batching import pad_batch
+from avsum_torch.models.scorer import to_mesh
+from avsum_torch.parallel.comm import all_gather
+from avsum_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_SEQ,
+    build_mesh,
+    mesh_config,
+)
 from avsum_torch.summary.metrics import evaluate_scores
 from avsum_torch.train.checkpoint import CheckpointManager
 from avsum_torch.train.config import Config
 from avsum_torch.train.steps import (
     TrainState,
     apply_matmul_precision,
-    batch_to_device,
-    check_single_device,
     create_train_state,
     make_eval_step,
     make_train_step,
+    shard_batch_dict,
 )
 from avsum_torch.utils.logging import JsonlLogger
 
@@ -36,29 +49,42 @@ log = logging.getLogger("avsum_torch.train")
 
 class Trainer:
     """Drives (model, config) over padded numpy batches on ``device``
-    (the card unless the caller asks for the CPU).
+    (the card unless the caller asks for the CPU; ``cuda`` is
+    ``cuda:{LOCAL_RANK % device_count}`` on a mesh).
+
+    ``model`` is a one-device scorer; on a mesh of more than one rank the
+    trainer keeps this rank's share of it (``self.model``,
+    :func:`avsum_torch.models.scorer.to_mesh`). ``mesh``: default, the
+    mesh of ``config.mesh`` over the world, with ``backend`` (default
+    NCCL on the card, gloo on the CPU; ranks that share one card need
+    gloo).
 
     ``batches_fn(epoch)`` yields dicts with visual [B,S,Dv], audio
     [B,S,Da], targets [B,S] and mask [B,S] (``avsum_torch.data.batching``).
     """
 
     def __init__(self, model: nn.Module, config: Config,
-                 total_steps: int = 10_000, device="cuda"):
-        check_single_device(config.mesh)
+                 total_steps: int = 10_000, device="cuda", mesh=None,
+                 backend: Optional[str] = None):
+        self.mesh = mesh if mesh is not None else build_mesh(
+            mesh_config(config.mesh), device, backend)
         apply_matmul_precision(config.train.matmul_precision)
         if config.train.debug_nans:
             torch.autograd.set_detect_anomaly(True)
         self.config = config
-        self.device = torch.device(device)
-        self.model = model.to(self.device)
+        self.device = self.mesh.device
+        self.model = to_mesh(model, self.mesh)
         self.total_steps = total_steps
-        self.train_step = make_train_step(self.model, config.train.seed,
+        self.train_step = make_train_step(self.model, self.mesh,
+                                          config.train.seed,
                                           config.train.ema_decay)
-        self.eval_step = make_eval_step(self.model)
+        self.eval_step = make_eval_step(self.model, self.mesh)
         self.state: Optional[TrainState] = None
         self.ckpt = CheckpointManager(config.train.checkpoint_dir,
-                                      keep=config.train.keep_checkpoints)
-        self.logger = JsonlLogger(config.train.log_path)
+                                      config.train.keep_checkpoints,
+                                      self.mesh)
+        self.logger = JsonlLogger(config.train.log_path
+                                  if self.mesh.is_primary else None)
         self.last_meta: Dict = {}
 
     def init_state(self) -> TrainState:
@@ -91,7 +117,7 @@ class Trainer:
             t0 = time.perf_counter()
             losses: List[torch.Tensor] = []
             for batch in batches_fn(epoch):
-                batch = batch_to_device(batch, self.device)
+                batch = shard_batch_dict(batch, self.mesh)
                 self.state, metrics = self.train_step(self.state, batch)
                 if self.state.step % cfg.log_every == 0:
                     record = self.logger.log(
@@ -129,18 +155,25 @@ class Trainer:
         s = example.n_shots
         while bucket < s:
             bucket *= 2
-        batch = batch_to_device(pad_batch([example], bucket), self.device)
-        out = self.eval_step(self.eval_params, batch)
-        return out["preds"].cpu().numpy()[0, :s]
+        return self.predict(pad_batch([example], bucket))[0, :s]
+
+    def predict(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
+        """The eval step's [B, S] predictions for a host batch: each
+        rank's block gathered over ``data`` x ``seq``, the mesh's padding
+        cut off."""
+        out = self.eval_step(self.eval_params,
+                             shard_batch_dict(batch, self.mesh))
+        preds = all_gather(all_gather(out["preds"], self.mesh, AXIS_SEQ, 1),
+                           self.mesh, AXIS_DATA, 0)
+        b, s = batch["mask"].shape
+        return preds.cpu().numpy()[:b, :s]
 
     def evaluate_videos(self, batches: Iterable[Dict]) -> Dict[str, float]:
         """Per-video metric means (each video with >= 2 valid shots
         contributes one F1 / rho / tau)."""
         per_video: List[Dict[str, float]] = []
         for batch in batches:
-            preds = self.eval_step(self.eval_params,
-                                   batch_to_device(batch, self.device))
-            preds = preds["preds"].cpu().numpy()
+            preds = self.predict(batch)
             for i in range(preds.shape[0]):
                 m = batch["mask"][i] > 0
                 if m.sum() < 2:

@@ -79,11 +79,29 @@ raising on failure:
    memory; (e) the (a) scorer exported by ``export`` in a background
    process started before phase 3, reloaded and scored against the
    eager scorer. Each wall, stage second and peak memory is printed on a
-   line of its own after the card's line.
+   line of its own after the card's line;
+12. the shipped mesh configs, each rank a spawned process on the card
+   (several ranks share one card over gloo, the transport staging its
+   tensors through pinned host memory): (a) ``configs/hour_scale.yaml``
+   at its own seq 4 mesh and widths: 3 steps at S = 7168 with remat
+   through ring attention (each rank's step time and peak memory beside
+   phase 8's flash step), and 3 steps at S = 1024, dropout 0, against
+   one process on the card; (b) the same at ``mesh.seq=1 mesh.data=2``,
+   S = 1024, where K2, B3 and B4 must run on each rank; (c)
+   ``configs/moe_ep.yaml`` and (d) ``configs/deep_pp.yaml`` at their own
+   2 x 4 meshes and widths, 3 steps against one process, each rank
+   holding a quarter of the experts or one stage of four; (e) ``train``
+   with hour_scale.yaml under ``python -m torch.distributed.run
+   --nproc-per-node 4`` (2 epochs, ``--resume``) and ``evaluate`` there
+   and in one process from the same checkpoint; (f) the NCCL backend at
+   a world of as many ranks as the machine has cards (one step of (b)'s
+   config). The mesh runs are held by ``compare_train_step``'s rule
+   (parameters to 3e-4 behind the ring, JAX's bound).
 
-Launch counts are reset just before each run of phases 3-5 and 9-11 and
-read just after it; the comparisons of phases 6-8 and 11 (c)-(e) and
-10 (d)'s eager scorer are not counted.
+Launch counts are reset just before each run of phases 3-5, 9-11 and
+12 (b) (in each rank) and read just after it; the comparisons of phases
+6-8 and 11 (c)-(e), 10 (d)'s eager scorer and the one-process runs of
+phase 12 are not counted.
 
 The last three lines are the kernels' JSON, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -97,6 +115,7 @@ import contextlib
 import io
 import json
 import logging
+import math
 import multiprocessing
 import os
 import signal
@@ -703,9 +722,10 @@ def compare_train_step(config: str = HOUR_CONFIG, sets=("mesh.seq=1",),
 
 
 def hour_step(sets: tuple = (), label: str = "hour step",
-              profile: bool = True) -> None:
+              profile: bool = True) -> dict:
     """One train step at S = 7168 with remat, hidden 512 (dropout on);
-    ``sets`` are further config overrides."""
+    ``sets`` are further config overrides -> the warm times (ms) and the
+    peak memory (GiB)."""
     import numpy as np
     import torch
 
@@ -742,6 +762,7 @@ def hour_step(sets: tuple = (), label: str = "hour step",
         raise AssertionError(f"hour step loss {loss}")
     if profile:
         profile_step(lambda: float(step(state, batch)[1]["loss"]), steps=2)
+    return {"warm": [round(t * 1e3, 1) for t in times], "peak": peak}
 
 
 # kernel-name fragments -> the split of a profiled step
@@ -1685,6 +1706,370 @@ def run_config4(tmp: str, vdir: str, budget: float, export4,
     return {k: n_a[k] + n_b[k] for k in n_a}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the shipped mesh configs on spawned ranks.
+# ---------------------------------------------------------------------------
+
+RING_PARAM_TOL = 3e-4  # ring vs one process, JAX's bound (test_ring_in_model)
+LOSS_RTOL = 1e-5  # mesh vs one-process losses, relative
+
+
+def _mesh_batch(b: int, s: int, cfg, seed: int) -> dict:
+    """A [b, s] batch at ``cfg``'s widths, the first row's tail padded."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mask = np.ones((b, s), np.float32)
+    mask[0, s - s // 15:] = 0.0
+    return {"visual": rng.standard_normal((b, s, cfg.model.visual_dim),
+                                          np.float32),
+            "audio": rng.standard_normal((b, s, cfg.model.audio_dim),
+                                         np.float32),
+            "targets": rng.random((b, s), np.float32) * mask, "mask": mask}
+
+
+def _record_first_grads(state) -> list:
+    """The gradients the optimizer gets at its first step, kept."""
+    first, update = [], state.optimizer.step
+
+    def recording(grads, g_norm=None):
+        if not first:
+            first.extend(g.detach().cpu() for g in grads)
+        return update(grads, g_norm)
+
+    state.optimizer.step = recording
+    return first
+
+
+def mesh_train_rank(config: str, sets: list, batch: dict, n_steps: int,
+                    backend: str = "gloo") -> dict:
+    """One rank of a phase 12 run: ``config`` with ``sets`` at its own mesh
+    over the spawned world, ``n_steps`` steps on ``batch`` -> its losses,
+    warm step times, peak memory, parameter bytes, kernel launches, and,
+    on the ranks of the first ``model`` group, its first gradients and
+    final parameters by name."""
+    import torch
+
+    from avsum_torch.models.scorer import make_model, to_mesh
+    from avsum_torch.parallel.mesh import AXIS_DATA, AXIS_SEQ, build_mesh
+    from avsum_torch.parallel.mesh import mesh_config, shard_batch
+    from avsum_torch.train import steps
+    from avsum_torch.train.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(config, sets)
+    mesh = build_mesh(mesh_config(cfg.mesh), "cuda", backend)
+    model = to_mesh(make_model(cfg.model, seed=0), mesh)
+    state = steps.create_train_state(model, cfg.train, total_steps=100)
+    first = _record_first_grads(state)
+    step = steps.make_train_step(model, mesh, seed=0)
+    _reset_train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(n_steps):
+        block = shard_batch(batch, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(state, block)[1]["loss"]))
+        times.append(time.perf_counter() - t0)
+    out = {"rank": mesh.rank, "coords": mesh.coords, "losses": losses,
+           "times": times, "counts": _train_counts(), "peak": _peak_gib(),
+           "split": model.split_names(),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+    if mesh.coords[AXIS_DATA] == 0 and mesh.coords[AXIS_SEQ] == 0:
+        names = [n for n, _ in model.named_parameters()]
+        out["grads"] = {n: g.numpy() for n, g in zip(names, first)}
+        out["params"] = {k: v.detach().cpu().numpy()
+                         for k, v in model.state_dict().items()}
+    return out
+
+
+def one_process_steps(config: str, sets: list, batch: dict,
+                      n_steps: int) -> dict:
+    """The same steps in this process on the card, on the whole batch."""
+    import torch
+
+    from avsum_torch.models.scorer import make_model
+    from avsum_torch.train import steps
+    from avsum_torch.train.config import load_config
+
+    cfg = load_config(config, sets)
+    model = make_model(cfg.model, seed=0).cuda()
+    state = steps.create_train_state(model, cfg.train, total_steps=100)
+    first = _record_first_grads(state)
+    step = steps.make_train_step(model, seed=0)
+    b = steps.batch_to_device(batch, "cuda")
+    losses = [float(step(state, b)[1]["loss"]) for _ in range(n_steps)]
+    names = [n for n, _ in model.named_parameters()]
+    out = {"losses": losses,
+           "grads": {n: g.numpy() for n, g in zip(names, first)},
+           "params": {k: v.detach().cpu().numpy()
+                      for k, v in model.state_dict().items()},
+           "full_bytes": {n: p.numel() * p.element_size()
+                          for n, p in model.named_parameters()}}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_run(label: str, ranks: list, want: dict,
+                   param_tol: float) -> None:
+    """``compare_train_step``'s rule for a mesh run against one process:
+    the losses (relative ``LOSS_RTOL``), the first gradients gathered to
+    the one-device layout (``GRAD_TOL`` of each tensor's max |g|), the
+    parameters after the steps to ``param_tol`` where the gradient check
+    settles them (Adam moves the rest by rounding noise)."""
+    import numpy as np
+
+    from avsum_torch.parallel.mesh import merge_shards
+
+    lead = sorted((r for r in ranks if "grads" in r),
+                  key=lambda r: r["coords"]["model"])
+    split = lead[0]["split"]
+    grads = merge_shards([r["grads"] for r in lead], split, want["grads"])
+    params = merge_shards([r["params"] for r in lead], split, want["params"])
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], want["losses"]))
+    grad_err, param_err, noisy = 0.0, 0.0, 0
+    for name, g in want["grads"].items():
+        scale = max(float(np.abs(g).max()), 1e-30)
+        grad_err = max(grad_err, float(np.abs(grads[name] - g).max()) / scale)
+        settled = np.abs(g) >= GRAD_TOL * scale
+        noisy += int((~settled).sum())
+        if settled.any():
+            param_err = max(param_err, float(np.abs(
+                params[name] - want["params"][name])[settled].max()))
+    print(f"phase 12 {label}: losses {[round(x, 6) for x in ranks[0]['losses']]}"
+          f" vs one process {[round(x, 6) for x in want['losses']]} (max rel "
+          f"{loss_err:.2e}), max grad error / max|g| {grad_err:.2e}, params "
+          f"max|d| {param_err:.2e} ({noisy} entries under the gradient's "
+          "noise floor)")
+    if loss_err > LOSS_RTOL or grad_err > GRAD_TOL or param_err > param_tol:
+        raise AssertionError(f"phase 12 {label}: the mesh run disagrees "
+                             "with one process")
+
+
+def _rank_summary(label: str, ranks: list, card: str) -> None:
+    import numpy as np
+
+    warm = [1e3 * float(np.median(r["times"][1:])) for r in ranks]
+    print(f"phase 12 {label}: warm step {np.round(warm, 1).tolist()} ms by "
+          f"rank (host clock, median after the first), peak device memory "
+          f"{[round(r['peak'], 2) for r in ranks]} GiB, parameter bytes "
+          f"{[r['param_bytes'] for r in ranks]} ({card})")
+
+
+def mesh_hour(ranks_4, card: str, flash: dict) -> None:
+    """Phase 12 (a): hour_scale.yaml at its seq 4 mesh and widths: the
+    S = 7168 step through the ring beside phase 8's flash step, then
+    3 steps at S = 1024, dropout 0, against one process."""
+    from avsum_torch.train.config import load_config
+
+    cfg = load_config(HOUR_CONFIG)
+    sets = ["model.remat=true"]
+    ranks = ranks_4.run(mesh_train_rank, HOUR_CONFIG, sets,
+                        _mesh_batch(1, 7168, cfg, 0), 3)
+    _rank_summary("(a) hour_scale.yaml seq 4, [1, 7168] remat, ring", ranks,
+                  card)
+    print(f"phase 12 (a): one process, flash kernels (phase 8): warm "
+          f"{flash['warm']} ms, peak {flash['peak']:.2f} GiB ({card})")
+    if any(not all(map(math.isfinite, r["losses"])) for r in ranks):
+        raise AssertionError("phase 12 (a): a loss is not finite")
+    sets = ["model.dropout=0", "train.warmup_steps=1"]
+    batch = _mesh_batch(1, 1024, cfg, 3)
+    ranks = ranks_4.run(mesh_train_rank, HOUR_CONFIG, sets, batch, 3)
+    want = one_process_steps(HOUR_CONFIG, sets, batch, 3)
+    _rank_summary("(a) hour_scale.yaml seq 4, [1, 1024]", ranks, card)
+    check_mesh_run("(a) seq 4 [1, 1024]", ranks, want, RING_PARAM_TOL)
+
+
+def mesh_data(card: str) -> dict:
+    """Phase 12 (b): hour_scale.yaml at data 2 (seq 1), S = 1024, 3 steps:
+    each rank runs K2, B3 and B4 -> their launches summed over the ranks."""
+    from avsum_torch.parallel.multihost import Ranks
+    from avsum_torch.train.config import load_config
+
+    sets = ["mesh.seq=1", "mesh.data=2", "train.warmup_steps=1"]
+    batch = _mesh_batch(2, 1024, load_config(HOUR_CONFIG), 4)
+    with Ranks(2, "gloo") as ranks_2:
+        ranks = ranks_2.run(mesh_train_rank, HOUR_CONFIG, sets, batch, 3)
+    want = one_process_steps(HOUR_CONFIG, sets, batch, 3)
+    _rank_summary("(b) hour_scale.yaml data 2, [2, 1024]", ranks, card)
+    check_mesh_run("(b) data 2 [2, 1024]", ranks, want, PARAM_TOL)
+    for r in ranks:
+        print(f"phase 12 (b) rank {r['rank']}: launches {r['counts']}")
+        if min(r["counts"].values()) <= 0:
+            raise AssertionError(f"phase 12 (b): rank {r['rank']} did not "
+                                 f"run K2, B3 and B4: {r['counts']}")
+    return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+
+
+def mesh_model(ranks_8, config: str, label: str, card: str) -> None:
+    """Phase 12 (c) / (d): ``config`` at its 2 x 4 mesh and widths, 3 steps
+    against one process; each rank holds a quarter of the experts, or one
+    stage of four."""
+    from avsum_torch.train.config import load_config
+
+    cfg = load_config(config)
+    batch = _mesh_batch(cfg.data.batch_videos, cfg.data.max_shots, cfg, 5)
+    sets = ["train.warmup_steps=1"]
+    ranks = ranks_8.run(mesh_train_rank, config, sets, batch, 3)
+    want = one_process_steps(config, sets, batch, 3)
+    name = os.path.basename(config)
+    _rank_summary(f"{label} {name} 2 x 4, [{cfg.data.batch_videos}, "
+                  f"{cfg.data.max_shots}]", ranks, card)
+    check_mesh_run(f"{label} {name}", ranks, want, PARAM_TOL)
+    what = "experts" if ranks[0]["split"] else "stages"
+    sharded = set(ranks[0]["split"]) or {n for n in want["full_bytes"]
+                                         if ".stages." in n}
+    full = sum(want["full_bytes"][n] for n in sharded)
+    for r in (r for r in ranks if "params" in r):
+        mine = sum(v.nbytes for n, v in r["params"].items() if n in sharded)
+        print(f"phase 12 {label} rank {r['rank']}: {mine} of {full} bytes "
+              f"of {what}")
+        if mine * 4 != full:
+            raise AssertionError(f"phase 12 {label}: rank {r['rank']} holds "
+                                 f"{mine} of {full} bytes, not a quarter")
+
+
+def score_rank(sets: list) -> tuple:
+    """One rank of phase 12 (e)'s scoring: the trainer at hour_scale.yaml's
+    mesh with ``sets``, restored from the checkpoint -> (its step, the
+    scores of every cached video)."""
+    import torch
+
+    from avsum_torch.data import FeatureCache
+    from avsum_torch.data.datasets import load_cached_examples
+    from avsum_torch.models.scorer import make_model
+    from avsum_torch.train.config import load_config
+    from avsum_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(HOUR_CONFIG, sets)
+    trainer = Trainer(make_model(cfg.model, seed=cfg.train.seed), cfg,
+                      device="cuda", backend="gloo")
+    trainer.init_state()
+    step = trainer.maybe_restore()
+    return step, [trainer.score_video(ex) for ex in load_cached_examples(
+        FeatureCache(cfg.data.cache_dir))]
+
+
+def mesh_cli(tmp: str, card: str, ranks_4) -> None:
+    """Phase 12 (e): ``train`` with hour_scale.yaml unmodified under
+    ``torch.distributed.run`` with 4 processes on the card (gloo), 2
+    epochs then ``--resume``, then ``evaluate`` there; the checkpoint
+    restored at the seq 4 mesh (the spawned ranks) and in one process
+    scores every video the same."""
+    import numpy as np
+
+    from avsum_torch.train.checkpoint import CheckpointManager
+
+    _write_feature_cache(f"{tmp}/mesh_cache", 4, seed=17)
+    log_path = f"{tmp}/mesh_train.jsonl"
+    sets = [f"data.cache_dir={tmp}/mesh_cache",
+            f"train.checkpoint_dir={tmp}/mesh_ckpt",
+            f"train.log_path={log_path}", "train.log_every=1"]
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def torchrun(cmd: str, epochs: int, *extra: str) -> str:
+        args = [a for x in sets + [f"train.epochs={epochs}"]
+                for a in ("--set", x)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "4", "-m", "avsum_torch.cli", cmd,
+             "--config", HOUR_CONFIG, "--device", "cuda", "--backend",
+             "gloo", *extra, *args], cwd=root, capture_output=True,
+            text=True, timeout=600, env={**os.environ, "PYTHONPATH": root})
+        print(f"phase 12 (e) torchrun {cmd} {list(extra)} to epoch {epochs}:"
+              f" rc {proc.returncode}, {time.perf_counter() - t0:.1f} s "
+              f"({card})")
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun {cmd}: {proc.stderr[-3000:]}")
+        return proc.stdout
+
+    torchrun("train", 2)
+    torchrun("train", 3, "--resume")
+    printed = [line for line in torchrun("evaluate", 3).splitlines()
+               if line.startswith("{")]
+    records = [json.loads(line) for line in open(log_path)]
+    losses = np.array([r["loss"] for r in records])
+    steps = CheckpointManager(f"{tmp}/mesh_ckpt").steps()
+    print(f"phase 12 (e): losses {np.round(losses, 5).tolist()}, "
+          f"checkpoints {steps}, evaluate {printed}")
+    if (len(records) != 12 or steps[-1] != 12 or len(printed) != 1
+            or not np.isfinite(losses).all() or records[8]["epoch"] != 2):
+        raise AssertionError("phase 12 (e): the torchrun run went wrong")
+    ranks = ranks_4.run(score_rank, sets)
+    step, one = score_rank([*sets, "mesh.seq=1"])
+    diff = max(float(np.abs(a - b).max()) for r in ranks
+               for a, b in zip(r[1], one))
+    print(f"phase 12 (e): the step-{step} checkpoint scores "
+          f"{sum(map(len, one))} shots of {len(one)} videos on the 4 "
+          f"ranks and in one process, max|d| {diff:.2e}")
+    if diff > SCORE_TOL or any(r[0] != step for r in ranks) or step != 12:
+        raise AssertionError("phase 12 (e): one process scores the "
+                             "checkpoint otherwise than the ranks")
+
+
+def nccl_rank(sets: list, batch: dict) -> dict:
+    """Phase 12 (f) on one rank of an NCCL world: a sum over the world of
+    a CUDA tensor, then one train step of (b)'s config."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(1, device=f"cuda:{dist.get_rank() % torch.cuda.device_count()}")
+    dist.all_reduce(x)
+    out = mesh_train_rank(HOUR_CONFIG, sets, batch, 1, backend="nccl")
+    out["world_sum"] = float(x.item())
+    return out
+
+
+def mesh_nccl(card: str) -> None:
+    """Phase 12 (f): the NCCL backend at the world the card count allows."""
+    import torch
+
+    from avsum_torch.parallel.multihost import Ranks
+    from avsum_torch.train.config import load_config
+
+    n = torch.cuda.device_count()
+    sets = ["mesh.seq=1", f"mesh.data={n}"]
+    batch = _mesh_batch(n, 1024, load_config(HOUR_CONFIG), 6)
+    with Ranks(n, "nccl") as world:
+        ranks = world.run(nccl_rank, sets, batch)
+    print(f"phase 12 (f) NCCL, world {n}: losses "
+          f"{[r['losses'] for r in ranks]}, sum over the world "
+          f"{ranks[0]['world_sum']} ({card})")
+    if n == 1:
+        print("phase 12 (f): this machine has one card, so NCCL ran a "
+              "world of one: a run with NCCL across two or more cards was "
+              "not possible here")
+    if any(r["world_sum"] != n or not math.isfinite(r["losses"][0])
+           for r in ranks):
+        raise AssertionError("phase 12 (f): the NCCL run went wrong")
+
+
+def run_mesh(tmp: str, card: str, flash: dict) -> dict:
+    """Phase 12 -> K2, B3 and B4 launches of (b)'s ranks."""
+    from avsum_torch.parallel.multihost import Ranks
+
+    print(card)
+    t0 = time.perf_counter()
+    with Ranks(4, "gloo") as ranks_4:
+        mesh_hour(ranks_4, card, flash)
+        mesh_cli(tmp, card, ranks_4)
+    n_b = mesh_data(card)
+    with Ranks(8, "gloo") as ranks_8:
+        mesh_model(ranks_8, MOE_CONFIG, "(c)", card)
+        mesh_model(ranks_8, DEEP_CONFIG, "(d)", card)
+    mesh_nccl(card)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s ({card})")
+    return n_b
+
+
 def main() -> int:
     try:
         import torch
@@ -1768,7 +2153,7 @@ def _run_in(tmp: str, cfg, card: str, export, export4) -> int:
     k2 = check_k2(s_pad)
     b3, b4 = check_b34()
     compare_train_step()
-    hour_step()
+    n_mesh = run_mesh(tmp, card, hour_step())
     kernels = [
         {"name": "melspec", "route": "cuda",
          "source": "avsum_torch/csrc/melspec.cu",
@@ -1781,15 +2166,18 @@ def _run_in(tmp: str, cfg, card: str, export, export4) -> int:
          "replaces": "avsum_tpu/ops/attention.py:42",
          "launches": (n_short["flash_fwd"] + n_many["flash_fwd"]
                       + n_train["flash_fwd"] + n_data["flash_fwd"]
-                      + n_serve["flash_fwd"] + n_cfg4["flash_fwd"]), **k2},
+                      + n_serve["flash_fwd"] + n_cfg4["flash_fwd"]
+                      + n_mesh["flash_fwd"]), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:173",
-         "launches": n_train["flash_bwd_dkv"], **b3},
+         "launches": n_train["flash_bwd_dkv"] + n_mesh["flash_bwd_dkv"],
+         **b3},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:221",
-         "launches": n_train["flash_bwd_dq"], **b4},
+         "launches": n_train["flash_bwd_dq"] + n_mesh["flash_bwd_dq"],
+         **b4},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,8 +7,8 @@ fusion + the MoE encoder on a small synthetic video against
 ``avsum_tpu``'s pipeline (all weights from JAX through
 ``avsum_torch.convert``); and ``train`` through the CLI with
 ``configs/moe_ep.yaml`` and ``configs/deep_pp.yaml`` at small widths,
-which needs ``--set mesh.data=1 --set mesh.model=1`` (their meshes raise,
-naming ROADMAP A6). float32, JAX at "highest" precision: scores 1e-5,
+at ``--set mesh.data=1 --set mesh.model=1`` (their 2 x 4 meshes need
+eight processes, and in one they raise, naming ``torchrun``). float32, JAX at "highest" precision: scores 1e-5,
 backbone features and the pipeline 1e-4 (ResNet50 and 12 ViT blocks
 deep)."""
 
@@ -167,7 +167,8 @@ def _write_cache(path, dims, n=4, seed=0):
 @pytest.mark.parametrize("config", ["moe_ep", "deep_pp"])
 def test_cli_trains_the_config_on_one_device(tmp_path, config):
     """The published config with its widths cut (hidden 16, 2 heads) and
-    its mesh set to one device; its own mesh raises, naming A6."""
+    its mesh set to one device; its own mesh, in one process, raises
+    naming the torchrun command."""
     _write_cache(f"{tmp_path}/cache", (16, 8))
     path = os.path.join(REPO, "configs", f"{config}.yaml")
     sets = [f"data.cache_dir={tmp_path}/cache", "data.max_shots=32",
@@ -178,7 +179,7 @@ def test_cli_trains_the_config_on_one_device(tmp_path, config):
             f"train.log_path={tmp_path}/log.jsonl"]
     args = ["train", "--config", path, "--device", "cpu",
             *[a for s in sets for a in ("--set", s)]]
-    with pytest.raises(ValueError, match="A6"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 8"):
         main(args)
     assert main([*args, "--set", "mesh.data=1", "--set", "mesh.model=1"]) == 0
     records = [json.loads(line) for line in open(f"{tmp_path}/log.jsonl")]

@@ -21,7 +21,7 @@ from avsum_torch.convert import bilstm_from_flax, scorer_from_flax
 from avsum_torch.models.scorer import make_model
 from avsum_torch.models.temporal import BiLSTM
 from avsum_torch.train.config import MeshShape, ModelConfig
-from avsum_torch.train.steps import check_single_device
+from avsum_torch.parallel.mesh import build_mesh, mesh_config
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,15 +83,15 @@ def test_avscorer_matches_jax(s):
     dict(temporal_encoder="moe"), dict(temporal_encoder="tcn"),
     dict(fusion="cross"), dict(pp_stages=4, temporal_layers=4)])
 def test_unported_scorer_variants_raise(change):
-    """Each variant now builds and scores on one device; what is still
-    unported of it, its mesh-parallel form (sharded experts, GPipe
-    stages), raises naming ROADMAP.md A6."""
+    """Each variant builds and scores on one device; its mesh-parallel
+    form (sharded experts, GPipe stages) needs one process per rank, and
+    a mesh larger than the world raises, naming the torchrun command."""
     cfg = ModelConfig(visual_dim=8, audio_dim=4, hidden_dim=16, **change)
     with torch.inference_mode():
         scores = make_model(cfg)(torch.ones(1, 6, 8), torch.ones(1, 6, 4))
     assert scores.shape == (1, 6) and torch.isfinite(scores).all()
-    with pytest.raises(ValueError, match="ROADMAP.md A6"):
-        check_single_device(MeshShape(model=4, auto_data=False))
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        build_mesh(mesh_config(MeshShape(model=4, auto_data=False)), "cpu")
     with pytest.raises(ValueError, match="unknown temporal encoder"):
         make_model(ModelConfig(temporal_encoder="gru"))
 

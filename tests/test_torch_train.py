@@ -35,6 +35,7 @@ from avsum_torch.data.cache import FeatureCache
 from avsum_torch.io.native import native_available
 from avsum_torch.io.synthetic import write_scene_video
 from avsum_torch.models.scorer import make_model
+from avsum_torch.parallel.mesh import build_mesh, mesh_config
 from avsum_torch.train import steps
 from avsum_torch.train.checkpoint import CheckpointManager
 from avsum_torch.train.config import (
@@ -335,11 +336,15 @@ def test_dropout_active_in_train_mode_and_reproducible():
 
 
 def test_multi_device_mesh_and_precision_settings():
-    with pytest.raises(ValueError, match="A6"):
-        steps.check_single_device(MeshShape(seq=4, auto_data=False))
-    with pytest.raises(ValueError, match="A6"):
-        steps.check_single_device(MeshShape(data=2, auto_data=False))
-    steps.check_single_device(MeshShape(data=2, auto_data=True))
+    """A mesh larger than the world (one process here) raises, naming the
+    torchrun command that starts one process per rank; ``auto_data``
+    takes the one process."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        build_mesh(mesh_config(MeshShape(seq=4, auto_data=False)), "cpu")
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        build_mesh(mesh_config(MeshShape(data=2, auto_data=False)), "cpu")
+    assert build_mesh(mesh_config(MeshShape(data=2, auto_data=True)),
+                      "cpu").world == 1
     steps.apply_matmul_precision("highest")
     assert torch.get_float32_matmul_precision() == "highest"
     assert torch.backends.cudnn.allow_tf32 is False
