@@ -29,11 +29,16 @@ staged encoder's stages run as a GPipe schedule (``pp_stages`` must
 equal the axis). Cross fusion, the MoE blocks' attention, the BiLSTM and
 the convolutions have no ring in JAX: with ``seq`` > 1 they gather the
 shot axis and keep the rank's block.
+With ``tensor_parallel`` (the layout :func:`avsum_torch.train.steps.
+shard_state` gives a train state) every other matrix is split over
+``model`` by JAX's ``state_shardings`` rule and its products run
+column-parallel (:mod:`avsum_torch.parallel.tensor`); without it they
+are whole on every rank.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -57,7 +62,13 @@ from avsum_torch.models.temporal import (
     seq_split,
 )
 from avsum_torch.parallel.comm import local_block
-from avsum_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ, shard_tensors
+from avsum_torch.parallel.mesh import (
+    AXIS_MODEL,
+    AXIS_SEQ,
+    Split,
+    shard_tensors,
+)
+from avsum_torch.parallel.tensor import parallelize
 from avsum_torch.train.config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -110,7 +121,8 @@ class AVScorer(nn.Module):
     ``mesh``: a :class:`avsum_torch.parallel.mesh.Mesh` (None: one
     device); the scorer then takes and returns this rank's block."""
 
-    def __init__(self, config: ModelConfig = ModelConfig(), mesh=None):
+    def __init__(self, config: ModelConfig = ModelConfig(), mesh=None,
+                 tensor_parallel: bool = False):
         super().__init__()
         self.config = config
         self.mesh = mesh
@@ -142,6 +154,9 @@ class AVScorer(nn.Module):
         self.scorer_out = nn.Linear(config.scorer_hidden, 1)
         for mod in (self.visual_fc, self.audio_fc, self.scorer_hidden):
             mod.to(dtype)
+        self.tp_splits: Dict[str, Split] = (
+            parallelize(self, mesh) if tensor_parallel and mesh is not None
+            else {})
 
     def forward(self, visual: torch.Tensor, audio: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
@@ -179,22 +194,27 @@ class AVScorer(nn.Module):
         return scores
 
 
-    def split_names(self) -> List[str]:
-        """The parameters whose leading axis is split over ``model`` (the
-        experts under expert parallelism); every other one is whole on
-        the ranks that hold it."""
-        return [f"{path}.{name}" for path, mod in self.named_modules()
-                if isinstance(mod, MoEFFN) and mod.ep_mesh is not None
-                for name in EXPERT_PARAMS]
+    def split_names(self) -> Dict[str, Split]:
+        """{name: Split} of the parameters split over ``model``: the
+        experts under expert parallelism and, with ``tensor_parallel``,
+        the matrices; every other one is whole on the ranks that hold
+        it."""
+        experts = {f"{path}.{name}": Split()
+                   for path, mod in self.named_modules()
+                   if isinstance(mod, MoEFFN) and mod.ep_mesh is not None
+                   for name in EXPERT_PARAMS}
+        return {**experts, **self.tp_splits}
 
 
-def to_mesh(model: AVScorer, mesh) -> AVScorer:
+def to_mesh(model: AVScorer, mesh, tensor_parallel: bool = False
+            ) -> AVScorer:
     """``model`` (one-device layout) on ``mesh``: a scorer of the same
-    config built for the mesh, holding this rank's share of ``model``'s
+    config built for the mesh (with ``tensor_parallel``, its matrices
+    split over ``model``), holding this rank's share of ``model``'s
     parameters, on the mesh's device, in ``model``'s mode."""
     if mesh.world == 1:
         return model.to(mesh.device)
-    local = AVScorer(model.config, mesh)
+    local = AVScorer(model.config, mesh, tensor_parallel)
     shapes = {k: tuple(v.shape) for k, v in local.state_dict().items()}
     local.load_state_dict(shard_tensors(model.state_dict(), shapes,
                                         local.split_names(), mesh))

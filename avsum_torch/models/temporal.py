@@ -59,7 +59,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from avsum_torch.models.attention import MultiHeadSelfAttention
-from avsum_torch.parallel.comm import gather, local_block
+from avsum_torch.parallel.comm import (
+    copy_to,
+    gather,
+    gather_from,
+    local_block,
+)
 from avsum_torch.parallel.mesh import (
     AXIS_MODEL,
     AXIS_SEQ,
@@ -108,7 +113,12 @@ def gather_shots(x: torch.Tensor, mask: Optional[torch.Tensor], mesh):
 
 
 class LSTMCellScan(nn.Module):
-    """One LSTM direction over [B, S, F] -> [B, S, H]."""
+    """One LSTM direction over [B, S, F] -> [B, S, H]. Under tensor
+    parallelism (``tp_mesh``, :mod:`avsum_torch.parallel.tensor`) ``wi``
+    and ``wh`` hold this rank's columns: the input projection runs
+    column-parallel and ``wh`` is gathered once before the loop."""
+
+    tp_mesh = None
 
     def __init__(self, in_features: int, hidden: int, dtype=torch.float32,
                  reverse: bool = False):
@@ -124,7 +134,14 @@ class LSTMCellScan(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, s, _ = x.shape
         # input projections for all steps at once; only h @ wh stays inside
-        xw = (torch.matmul(x, self.wi).float() + self.b).to(self.dtype)
+        wh, mesh = self.wh, self.tp_mesh
+        if mesh is None:
+            xw = torch.matmul(x, self.wi)
+        else:
+            xw = gather_from(torch.matmul(copy_to(x, mesh, AXIS_MODEL),
+                                          self.wi), mesh, AXIS_MODEL)
+            wh = gather_from(wh, mesh, AXIS_MODEL)
+        xw = (xw.float() + self.b).to(self.dtype)
         m = (torch.ones(b, s, 1, dtype=self.dtype, device=x.device)
              if mask is None else mask.to(self.dtype)[..., None])
         h = torch.zeros(b, self.hidden, dtype=self.dtype, device=x.device)
@@ -135,7 +152,7 @@ class LSTMCellScan(nn.Module):
             from torch._higher_order_ops import scan
 
             def step(carry, inputs):  # scan's outputs may not alias
-                carry, h_t = self._step(carry, inputs)
+                carry, h_t = self._step(carry, inputs, wh)
                 return carry, h_t.clone()
 
             _, hs = scan(step, (h, c),
@@ -144,15 +161,15 @@ class LSTMCellScan(nn.Module):
             return hs.transpose(0, 1)
         hs = [None] * s
         for t in (range(s - 1, -1, -1) if self.reverse else range(s)):
-            (h, c), hs[t] = self._step((h, c), (xw[:, t], m[:, t]))
+            (h, c), hs[t] = self._step((h, c), (xw[:, t], m[:, t]), wh)
         return torch.stack(hs, dim=1)
 
-    def _step(self, carry, inputs):
+    def _step(self, carry, inputs, wh):
         """One time step: ((h, c), (x @ wi + b, mask)) -> ((h, c), h);
         the state stays frozen across a masked step."""
         h, c = carry
         xw_t, m_t = inputs
-        gates = xw_t + (h @ self.wh).to(self.dtype)
+        gates = xw_t + (h @ wh).to(self.dtype)
         i, f, g, o = gates.chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)

@@ -16,7 +16,14 @@ Autograd forms (each the identity on an axis of size 1):
   gradient of the sum is each rank's own cotangent, not their sum;
 - :func:`gather`: the shot blocks of the axis concatenated forward; the
   backward sums the cotangents over the axis and keeps this rank's block
-  (a reduce-scatter).
+  (a reduce-scatter): each rank's consumers of the gathered axis compute
+  a part of the loss;
+- :func:`gather_from`: the blocks of a split quantity (a column-parallel
+  product's features, a split weight) concatenated forward; the backward
+  keeps this rank's block of the cotangent and sums nothing, since every
+  rank of the axis computes the same loss from the gathered whole, so
+  its cotangent is already the whole gradient (a sum would be m times
+  it).
 """
 
 from __future__ import annotations
@@ -126,6 +133,18 @@ class _Gather(torch.autograd.Function):
         return total.narrow(ctx.dim, start, ctx.n), None, None, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.start = mesh.index(axis) * x.shape[dim]
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None, None
+
+
 def _trivial(mesh, axis: str) -> bool:
     return mesh is None or mesh.size(axis) == 1
 
@@ -140,6 +159,12 @@ def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 def gather(x: torch.Tensor, mesh, axis: str, dim: int = 1) -> torch.Tensor:
     return x if _trivial(mesh, axis) else _Gather.apply(x, mesh, axis, dim)
+
+
+def gather_from(x: torch.Tensor, mesh, axis: str, dim: int = -1
+                ) -> torch.Tensor:
+    return x if _trivial(mesh, axis) else _GatherFrom.apply(x, mesh, axis,
+                                                            dim)
 
 
 def local_block(x: torch.Tensor, mesh, axis: str, dim: int = 1

@@ -6,8 +6,10 @@ One process per rank. The mesh has the JAX package's three named axes:
 - ``data``:  data parallelism over videos (the batch axis);
 - ``seq``:   context parallelism over the shot axis (ring attention,
   :mod:`avsum_torch.parallel.ring`);
-- ``model``: the experts of the MoE encoder (expert parallelism) or the
-  stages of the staged encoder (GPipe, :mod:`avsum_torch.parallel.pipeline`).
+- ``model``: the experts of the MoE encoder (expert parallelism), the
+  stages of the staged encoder (GPipe, :mod:`avsum_torch.parallel.pipeline`)
+  and, under ``state_sharding``, the matrices of every other module
+  (tensor parallelism, :mod:`avsum_torch.parallel.tensor`).
 
 Rank order is the JAX reshape of the device list to ``(data, seq,
 model)``: ``model`` varies fastest. Each axis is one process group per
@@ -23,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import os
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -260,22 +262,76 @@ def global_block(mesh: Optional[Mesh], shape: Sequence[int],
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """Where a parameter is split over ``model``: dimension ``dim`` of the
+    port's tensor, viewed as ``parts`` (None: as it is), cut into equal
+    blocks along ``parts[at]``; rank i of the model group holds block i.
+    The experts split their leading axis (``Split(0)``); a fused qkv
+    weight [3E, E] splits its head width (``Split(0, (3, H, d), 2)``)."""
+
+    dim: int = 0
+    parts: Optional[Tuple[int, ...]] = None
+    at: int = 0
+
+    def _view(self, shape: Sequence[int], n: int = 1) -> Tuple[int, ...]:
+        """``shape`` with ``dim`` expanded into its parts (the split one
+        divided by ``n``)."""
+        parts = list(self.parts or (shape[self.dim],))
+        parts[self.at] //= n
+        return (*shape[:self.dim], *parts, *shape[self.dim + 1:])
+
+    def local_shape(self, shape: Sequence[int], n: int) -> Tuple[int, ...]:
+        """A rank's shape of a one-device ``shape`` over ``n`` ranks."""
+        shape = tuple(shape)
+        if shape[self.dim] % n or (self.parts and self.parts[self.at] % n):
+            raise ValueError(f"{self} of {shape} does not divide by {n}")
+        return (*shape[:self.dim], shape[self.dim] // n, *shape[self.dim + 1:])
+
+    def shard(self, full, n: int, i: int):
+        """Block ``i`` of ``n`` of the one-device tensor ``full``."""
+        local = self.local_shape(full.shape, n)
+        view = self._view(full.shape)
+        size = view[self.dim + self.at] // n
+        return full.reshape(view).narrow(self.dim + self.at, i * size,
+                                         size).reshape(local)
+
+    def join(self, blocks: Sequence):
+        """The one-device tensor from the blocks of every rank, in rank
+        order (torch tensors or numpy arrays)."""
+        n, first = len(blocks), blocks[0]
+        shape = list(first.shape)
+        shape[self.dim] *= n
+        views = [b.reshape(self._view(shape, n)) for b in blocks]
+        axis = self.dim + self.at
+        cat = (np.concatenate(views, axis) if isinstance(first, np.ndarray)
+               else torch.cat(views, axis))
+        return cat.reshape(shape)
+
+
+def splits(split) -> Dict[str, Split]:
+    """``split`` as {name: Split}: a mapping as it is, an iterable of names
+    each split along its leading axis (the experts' layout)."""
+    if isinstance(split, Mapping):
+        return dict(split)
+    return {name: Split() for name in split}
+
+
 def shard_tensors(full: Dict[str, torch.Tensor],
                   local_shapes: Dict[str, Tuple[int, ...]],
-                  split: Iterable[str], mesh: Optional[Mesh]
-                  ) -> Dict[str, torch.Tensor]:
+                  split, mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
     """This rank's tensors from the one-device layout ``full``: every name
-    of ``local_shapes`` is taken whole, except those in ``split``, whose
-    leading axis is split over ``model`` (the experts). Names ``full``
-    holds and the rank does not (other ranks' stages) are left out."""
-    split = set(split)
+    of ``local_shapes`` is taken whole, except those in ``split`` ({name:
+    :class:`Split`}, or names split along their leading axis), of which
+    the rank takes its block along ``model``. Names ``full`` holds and the
+    rank does not (other ranks' stages) are left out."""
+    split = splits(split)
     out = {}
     for name, shape in local_shapes.items():
         t = full[name]
         if name in split and mesh is not None:
-            n, i = mesh.size(AXIS_MODEL), mesh.index(AXIS_MODEL)
-            step = t.shape[0] // n
-            t = t[i * step:(i + 1) * step]
+            t = split[name].shard(t, mesh.size(AXIS_MODEL),
+                                  mesh.index(AXIS_MODEL))
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {tuple(t.shape)} does not fit this "
                              f"rank's {tuple(shape)}")
@@ -283,13 +339,13 @@ def shard_tensors(full: Dict[str, torch.Tensor],
     return out
 
 
-def gather_tensors(local: Dict[str, torch.Tensor], split: Iterable[str],
+def gather_tensors(local: Dict[str, torch.Tensor], split,
                    mesh: Optional[Mesh], order: Sequence[str]
                    ) -> Dict[str, torch.Tensor]:
     """The one-device layout (names in ``order``) from each rank's tensors
-    along ``model``: the ``split`` ones concatenated in rank order, every
-    other name from the first rank that holds it. A collective over the
-    model group; CPU tensors out."""
+    along ``model``: the ``split`` ones joined in rank order, every other
+    name from the first rank that holds it. A collective over the model
+    group; CPU tensors out."""
     local = {k: v.detach().cpu() for k, v in local.items()}
     if mesh is None or mesh.size(AXIS_MODEL) == 1:
         return {k: local[k] for k in order}
@@ -298,16 +354,14 @@ def gather_tensors(local: Dict[str, torch.Tensor], split: Iterable[str],
     return merge_shards(parts, split, order)
 
 
-def merge_shards(parts: Sequence[dict], split: Iterable[str],
-                 order: Sequence[str]) -> dict:
+def merge_shards(parts: Sequence[dict], split, order: Sequence[str]) -> dict:
     """The one-device layout from the tensors of the ranks of one ``model``
     group, in rank order (:func:`gather_tensors`)."""
-    split = set(split)
+    split = splits(split)
     out = {}
     for name in order:
         held = [p[name] for p in parts if name in p]
         if not held:
             raise ValueError(f"no rank holds {name}")
-        out[name] = (np.concatenate(held) if isinstance(held[0], np.ndarray)
-                     else torch.cat(held)) if name in split else held[0]
+        out[name] = split[name].join(held) if name in split else held[0]
     return out

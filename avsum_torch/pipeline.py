@@ -46,6 +46,14 @@ but open the reader.
 ``summarize`` is ``summarize_begin(...)()``; ``preprocess_dataset``
 sweeps a directory into a ``FeatureCache`` with video i+1 begun before
 video i is finished.
+
+The stages are :func:`~avsum_torch.utils.profiling.annotate` spans under
+the JAX package's names (``avsum.detect_thread``, ``avsum.visual_dispatch``,
+``avsum.audio_dispatch``, ``avsum.shot_detect_host``, ``avsum.visual_pool``,
+``avsum.audio_pool``, ``avsum.score_select``; the classic path's
+``avsum.shot_detect``, ``avsum.visual_features``,
+``avsum.audio_features``), which add no wait for the device;
+``stage_seconds`` keeps its own keys.
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ from avsum_torch.temporal.shots import (
     refined_content_scores,
 )
 from avsum_torch.train.config import Config
+from avsum_torch.utils.profiling import annotate
 from avsum_torch.utils.transfer import to_device
 from avsum_torch.vision.backbone import VisualFrontend, sample_shot_frames
 
@@ -84,11 +93,13 @@ SCORER_PAD = 32  # the materializing path pads the shot axis to a multiple
 
 
 @contextlib.contextmanager
-def _clock(stages: Dict[str, float], name: str):
+def _clock(stages: Dict[str, float], name: str, span: Optional[str] = None):
     """Host-clock seconds of the block into ``stages[name]`` (the device
-    is not waited for)."""
+    is not waited for); with ``span``, the block is also that
+    :func:`~avsum_torch.utils.profiling.annotate` span."""
     t0 = time.perf_counter()
-    yield
+    with annotate(span) if span else contextlib.nullcontext():
+        yield
     stages[name] = time.perf_counter() - t0
 
 
@@ -335,7 +346,7 @@ class AVPipeline:
         cfg = self.config
         fps, n_frames = reader.fps, reader.n_frames
         stages: Dict[str, float] = {}
-        with _clock(stages, "shot_detect"):
+        with _clock(stages, "shot_detect", "avsum.shot_detect"):
             scale = self._detect_downscale(reader.width)
             if hasattr(reader, "content_scores"):
                 scores = refined_content_scores(reader, scale,
@@ -350,7 +361,7 @@ class AVPipeline:
             if len(boundaries) == 0:
                 boundaries = np.array([[0, n_frames]], np.int64)
 
-        with _clock(stages, "visual_features"):
+        with _clock(stages, "visual_features", "avsum.visual_features"):
             if cfg.visual.sample_fps > 0:
                 stride = max(1, round(fps / cfg.visual.sample_fps))
             else:
@@ -366,7 +377,7 @@ class AVPipeline:
                     reader.read_frames(frame_idx), shot_ids, len(boundaries))
             visual = visual.cpu().numpy()
 
-        with _clock(stages, "audio_features"):
+        with _clock(stages, "audio_features", "avsum.audio_features"):
             waveform = self._load_audio(reader.path, n_frames / fps)
             audio = self.audio.shot_features(
                 waveform, self._sample_bounds(boundaries, fps)).cpu().numpy()
@@ -393,7 +404,7 @@ class AVPipeline:
         host_work: Dict = {}  # each thread writes its own keys
 
         def _detect():
-            with _clock(stages, "shot_detect"):
+            with _clock(stages, "shot_detect", "avsum.detect_thread"):
                 try:
                     host_work["scores"] = refined_content_scores(
                         reader, scale, self.detector.threshold)
@@ -413,7 +424,7 @@ class AVPipeline:
         det_thread.start()
         wav_thread.start()
         try:
-            with _clock(stages, "visual_dispatch"):
+            with _clock(stages, "visual_dispatch", "avsum.visual_dispatch"):
                 pending, run_ids = self._dispatch_visual(reader, frame_idx)
         except BaseException:
             det_thread.join()
@@ -496,22 +507,27 @@ class AVPipeline:
         detection scores into shot boundaries and each sampled frame's
         shot and cap mask."""
         host_work = st["host_work"]
-        st["wav_thread"].join()
-        try:
-            if "wav_error" in host_work:
-                raise host_work["wav_error"]
-            audio_full = self.audio.dispatch_full(host_work["waveform"])
-        finally:
-            # the detect thread reads the reader the caller then closes
-            st["det_thread"].join()
-        if "detect_error" in host_work:
-            raise host_work["detect_error"]
+        with annotate("avsum.audio_dispatch"):
+            st["wav_thread"].join()
+            try:
+                if "wav_error" in host_work:
+                    raise host_work["wav_error"]
+                audio_full = self.audio.dispatch_full(host_work["waveform"])
+            except BaseException:
+                # the detect thread reads the reader the caller then closes
+                st["det_thread"].join()
+                raise
         n_frames, frame_idx = st["n_frames"], st["frame_idx"]
-        cuts = cuts_from_scores(host_work["scores"], self.detector.threshold,
-                                self.detector.min_scene_len)
-        boundaries = boundaries_from_cuts(cuts, n_frames)
-        if len(boundaries) == 0:
-            boundaries = np.array([[0, n_frames]], np.int64)
+        with annotate("avsum.shot_detect_host"):
+            st["det_thread"].join()
+            if "detect_error" in host_work:
+                raise host_work["detect_error"]
+            cuts = cuts_from_scores(host_work["scores"],
+                                    self.detector.threshold,
+                                    self.detector.min_scene_len)
+            boundaries = boundaries_from_cuts(cuts, n_frames)
+            if len(boundaries) == 0:
+                boundaries = np.array([[0, n_frames]], np.int64)
 
         shot_ids = np.searchsorted(boundaries[:, 0], frame_idx,
                                    side="right") - 1
@@ -538,7 +554,7 @@ class AVPipeline:
         with _clock(stages, "prep"):
             c = self._finish_prep(st)
         boundaries = c["boundaries"]
-        with _clock(stages, "visual_pool"):
+        with _clock(stages, "visual_pool", "avsum.visual_pool"):
             visual, counts = self.visual.pool_on_device(
                 st["pending"], len(st["frame_idx"]), c["shot_ids"],
                 c["keep"], len(boundaries), run_ids=st["run_ids"])
@@ -546,7 +562,7 @@ class AVPipeline:
             if missing.any():
                 self._repair_missing(st["reader"], visual, boundaries,
                                      missing)
-        with _clock(stages, "audio_pool"):
+        with _clock(stages, "audio_pool", "avsum.audio_pool"):
             audio = self.audio.pool(
                 c["audio_full"],
                 self._sample_bounds(boundaries, st["fps"])).cpu().numpy()
@@ -581,34 +597,39 @@ class AVPipeline:
         # bucket is at least as long
         sp = max(SCORER_PAD, -(-n_shots // SCORER_PAD) * SCORER_PAD)
         with _clock(stages, "pool"):
-            pooled, counts = self.visual.pool_on_device(
-                st["pending"], len(st["frame_idx"]), c["shot_ids"],
-                c["keep"], n_shots, run_ids=st["run_ids"], return_device=True)
-            audio = self.audio.pool(
-                c["audio_full"], self._sample_bounds(boundaries, fps),
-                s_bucket=sp, return_device=True)
-        with _clock(stages, "score"):
-            mask = np.zeros(sp, np.float32)
-            mask[:n_shots] = 1.0
-            with torch.inference_mode():
-                scores = model(pooled[None, :sp], audio[None],
-                               to_device(mask, self.device)[None])[0]
-            missing = counts.numpy()[:n_shots] <= 0
-            if missing.any():
-                visual = pooled[:n_shots].cpu().numpy()
-                self._repair_missing(st["reader"], visual, boundaries,
-                                     missing)
-                p = ProcessedVideo(
-                    video_id=st["video_id"], visual=visual,
-                    audio=audio[:n_shots].cpu().numpy(),
-                    boundaries=np.asarray(boundaries, np.int64), fps=fps,
-                    n_frames=n_frames)
-                self.stage_seconds = stages
-                return self._score_summary(p, model, budget_fraction)
-            scores = scores[:n_shots].float().cpu().numpy()
-        with _clock(stages, "select"):
-            out = self._select_from_scores(st["video_id"], scores, boundaries,
-                                           fps, n_frames, budget_fraction)
+            with annotate("avsum.visual_pool"):
+                pooled, counts = self.visual.pool_on_device(
+                    st["pending"], len(st["frame_idx"]), c["shot_ids"],
+                    c["keep"], n_shots, run_ids=st["run_ids"],
+                    return_device=True)
+            with annotate("avsum.audio_pool"):
+                audio = self.audio.pool(
+                    c["audio_full"], self._sample_bounds(boundaries, fps),
+                    s_bucket=sp, return_device=True)
+        with annotate("avsum.score_select"):
+            with _clock(stages, "score"):
+                mask = np.zeros(sp, np.float32)
+                mask[:n_shots] = 1.0
+                with torch.inference_mode():
+                    scores = model(pooled[None, :sp], audio[None],
+                                   to_device(mask, self.device)[None])[0]
+                missing = counts.numpy()[:n_shots] <= 0
+                if missing.any():
+                    visual = pooled[:n_shots].cpu().numpy()
+                    self._repair_missing(st["reader"], visual, boundaries,
+                                         missing)
+                    p = ProcessedVideo(
+                        video_id=st["video_id"], visual=visual,
+                        audio=audio[:n_shots].cpu().numpy(),
+                        boundaries=np.asarray(boundaries, np.int64), fps=fps,
+                        n_frames=n_frames)
+                    self.stage_seconds = stages
+                    return self._score_summary(p, model, budget_fraction)
+                scores = scores[:n_shots].float().cpu().numpy()
+            with _clock(stages, "select"):
+                out = self._select_from_scores(st["video_id"], scores,
+                                               boundaries, fps, n_frames,
+                                               budget_fraction)
         stages["finish"] = time.perf_counter() - t0
         self.stage_seconds = stages
         return out
@@ -740,12 +761,13 @@ class AVPipeline:
     def _score_summary(self, p: ProcessedVideo, model,
                        budget_fraction: Optional[float]) -> Dict:
         stages = self.stage_seconds
-        with _clock(stages, "score"):
-            scores = self.score(p, model)
-        with _clock(stages, "select"):
-            return self._select_from_scores(p.video_id, scores, p.boundaries,
-                                            p.fps, p.n_frames,
-                                            budget_fraction)
+        with annotate("avsum.score_select"):
+            with _clock(stages, "score"):
+                scores = self.score(p, model)
+            with _clock(stages, "select"):
+                return self._select_from_scores(
+                    p.video_id, scores, p.boundaries, p.fps, p.n_frames,
+                    budget_fraction)
 
     def _select_from_scores(self, video_id: str, scores: np.ndarray,
                             boundaries: np.ndarray, fps: float,

@@ -9,11 +9,13 @@ sees half of one; the newest ``keep`` are kept. The learning-rate
 schedule is a function of the step, so restoring the step restores it.
 
 A checkpoint is always in the one-device layout, so it restores at any
-mesh ("restore works across mesh layouts", as Orbax's does in JAX). On a
-mesh every rank gathers the experts and stages of its ``model`` group
+mesh and placement ("restore works across mesh layouts", as Orbax's does
+in JAX). On a mesh every rank gathers the experts, the stages and the
+tensor-parallel blocks of its ``model`` group
 (:func:`avsum_torch.parallel.mesh.gather_tensors`), the primary rank
 writes, and the others wait at a barrier; a restore takes each rank's
-share (:func:`~avsum_torch.parallel.mesh.shard_tensors`).
+share of the template's layout
+(:func:`~avsum_torch.parallel.mesh.shard_tensors`).
 """
 
 from __future__ import annotations
@@ -26,15 +28,21 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from avsum_torch.parallel.mesh import AXIS_MODEL, gather_tensors, shard_tensors
+from avsum_torch.parallel.mesh import (
+    AXIS_MODEL,
+    Split,
+    gather_tensors,
+    shard_tensors,
+)
+from avsum_torch.parallel.tensor import one_device
 from avsum_torch.train.steps import TrainState
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
 
 
-def _split(model) -> List[str]:
-    return list(getattr(model, "split_names", list)())
+def _split(model) -> Dict[str, Split]:
+    return dict(getattr(model, "split_names", dict)())
 
 
 def _one_device_names(model, mesh) -> Tuple[List[str], List[str]]:
@@ -42,8 +50,7 @@ def _one_device_names(model, mesh) -> Tuple[List[str], List[str]]:
     layout, in its order."""
     full = model
     if mesh is not None and mesh.size(AXIS_MODEL) > 1:
-        with torch.device("meta"):
-            full = type(model)(model.config)
+        full = one_device(model)
     return list(full.state_dict()), [n for n, _ in full.named_parameters()]
 
 

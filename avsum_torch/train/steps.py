@@ -21,9 +21,18 @@ rank's sum of squared errors by the mask count of the whole batch, the
 gradients of every parameter are summed over the ranks that share its
 ``model`` coordinate (``data`` x ``seq``), and the global norm counts each
 parameter once: the replicated ones on this rank, the ones split over
-``model`` (experts, pipeline stages) summed over it. Every ``model`` rank
-computes the same loss, so nothing is summed over ``model`` but those
-squares.
+``model`` (experts, pipeline stages, the matrices under tensor
+parallelism) summed over it. Every ``model`` rank computes the same
+loss, so nothing is summed over ``model`` but those squares.
+
+Tensor parallelism (JAX's ``param_partition_spec`` / ``state_shardings``
+/ ``shard_state`` and ``make_train_step(..., state_sharding=...)``):
+:func:`shard_state` gives each rank its block of every parameter JAX's
+rule splits over ``model`` (:mod:`avsum_torch.parallel.tensor`), with
+the same blocks of Adam's moments and of the EMA; the step over such a
+state runs the split products column-parallel. Without it, as the JAX
+trainer does, the parameters are whole on every rank but the experts'
+and the stages'.
 
 PyTorch runs eagerly and updates parameters in place; the JAX step is a
 pure function of the state.
@@ -31,6 +40,7 @@ pure function of the state.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -45,6 +55,11 @@ from avsum_torch.parallel.mesh import (  # noqa: F401  (the JAX names)
     REPLICA,
     pad_batch_for_mesh,
     shard_batch as shard_batch_dict,
+    shard_tensors,
+)
+from avsum_torch.parallel.tensor import (  # noqa: F401  (the JAX names)
+    param_partition_spec,
+    state_shardings,
 )
 from avsum_torch.train.config import TrainConfig
 
@@ -188,14 +203,57 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Batch:
             for k, v in batch.items()}
 
 
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """``state`` (its model in the one-device layout) placed on ``mesh``
+    with tensor parallelism over ``model``: a scorer built for the mesh
+    whose matrices are split by :func:`state_shardings`, holding this
+    rank's block of every parameter, and the same blocks of Adam's
+    moments and of the EMA, on the mesh's device. The optimizer keeps its
+    update count and schedule."""
+    from avsum_torch.models.scorer import to_mesh
+
+    full = state.model
+    if getattr(full, "mesh", None) is not None:
+        raise ValueError("shard_state takes a state in the one-device "
+                         "layout (a model built without a mesh)")
+    local = to_mesh(full, mesh, tensor_parallel=mesh.world > 1)
+    split = local.split_names() if mesh.world > 1 else {}
+    shapes = {n: tuple(p.shape) for n, p in local.named_parameters()}
+    names = [n for n, _ in full.named_parameters()]
+
+    def placed(tensors: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        part = shard_tensors(tensors, shapes, split, mesh)
+        return [part[n].to(mesh.device).clone() for n in shapes]
+
+    optimizer = copy.copy(state.optimizer)
+    optimizer.params = list(local.parameters())
+    optimizer.mu = placed(dict(zip(names, state.optimizer.mu)))
+    optimizer.nu = placed(dict(zip(names, state.optimizer.nu)))
+    ema = None
+    if state.ema is not None:
+        ema = dict(zip(shapes, placed(state.ema)))
+    return TrainState(local, optimizer, ema)
+
+
 def _model_split(model: nn.Module) -> set:
-    """Names of the parameters split over ``model``: the experts and the
-    stages this rank holds."""
-    names = set(getattr(model, "split_names", list)())
+    """Names of the parameters split over ``model``: the experts, the
+    stages this rank holds and the tensor-parallel matrices."""
+    names = set(getattr(model, "split_names", dict)())
     mesh = getattr(model, "mesh", None)
     if mesh is not None and mesh.size(AXIS_MODEL) > 1:
         names |= {n for n, _ in model.named_parameters() if ".stages." in n}
     return names
+
+
+def _check_placement(model: nn.Module, state_sharding: dict) -> None:
+    """Raise unless ``model`` holds the layout ``state_sharding`` gives."""
+    want = {n for n, _ in model.named_parameters()
+            if state_sharding.get(n) is not None}
+    have = _model_split(model)
+    if want != have:
+        raise ValueError(
+            "the state is not placed by state_sharding (make it with "
+            f"shard_state): split {sorted(want ^ have)[:4]} differ")
 
 
 def _sum_over(tensors: List[torch.Tensor], mesh, axis: str
@@ -235,18 +293,28 @@ def _mesh_loss(preds, batch, mesh):
 
 
 def make_train_step(model: nn.Module, mesh=None, seed: int = 0,
+                    state_sharding: Optional[dict] = None,
                     ema_decay: float = 0.0
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
     """-> ``train_step(state, batch) -> (state, metrics)``; metrics are
     device scalars (loss, grad_norm, pred_mean), read by the caller when
     it needs them. With ``mesh`` the batch is this rank's block and the
-    metrics are those of the whole batch."""
+    metrics are those of the whole batch. The step runs ``state.model``.
+
+    ``state_sharding`` (:func:`state_shardings` of the model on ``mesh``):
+    the state is tensor-parallel over ``model`` (:func:`shard_state`); a
+    state placed otherwise raises. None: the model as built for the mesh
+    (``to_mesh``), matrices whole. ``model`` is taken for JAX's
+    signature."""
     if mesh is not None and mesh.world == 1:
         mesh = None
-    split_names = _model_split(model) if mesh is not None else set()
-    split = [n in split_names for n, _ in model.named_parameters()]
 
     def train_step(state: TrainState, batch: Batch):
+        model = state.model
+        if mesh is not None and state_sharding is not None:
+            _check_placement(model, state_sharding)
+        split_names = _model_split(model) if mesh is not None else set()
+        split = [n in split_names for n, _ in model.named_parameters()]
         model.train()
         preds = model(batch["visual"], batch["audio"], batch["mask"],
                       generator=dropout_generator(seed, state.step))

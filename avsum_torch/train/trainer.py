@@ -3,7 +3,11 @@ batches, a per-epoch reshuffle, JSONL scalars every ``log_every`` steps,
 an eval hook, checkpoints, and scoring of whole videos.
 
 The train step's metrics stay on the device except at ``log_every``
-steps and once per epoch, where the host reads them.
+steps and once per epoch, where the host reads them. With
+``train.debug_nans`` the train and eval steps run under
+:func:`avsum_torch.utils.debug.debug_nans` (every operation checked for
+NaNs, forward and backward, as ``jax_debug_nans`` does in the JAX
+trainer).
 
 The mesh comes from ``config.mesh`` and the world (``torchrun`` starts
 one process per rank; a mesh larger than the world raises, naming that
@@ -42,9 +46,18 @@ from avsum_torch.train.steps import (
     make_train_step,
     shard_batch_dict,
 )
+from avsum_torch.utils.debug import debug_nans
 from avsum_torch.utils.logging import JsonlLogger
 
 log = logging.getLogger("avsum_torch.train")
+
+
+def _checking_nans(step: Callable) -> Callable:
+    def checking(*args):
+        with debug_nans():
+            return step(*args)
+
+    return checking
 
 
 class Trainer:
@@ -69,16 +82,21 @@ class Trainer:
         self.mesh = mesh if mesh is not None else build_mesh(
             mesh_config(config.mesh), device, backend)
         apply_matmul_precision(config.train.matmul_precision)
-        if config.train.debug_nans:
-            torch.autograd.set_detect_anomaly(True)
         self.config = config
         self.device = self.mesh.device
         self.model = to_mesh(model, self.mesh)
         self.total_steps = total_steps
         self.train_step = make_train_step(self.model, self.mesh,
                                           config.train.seed,
-                                          config.train.ema_decay)
+                                          ema_decay=config.train.ema_decay)
         self.eval_step = make_eval_step(self.model, self.mesh)
+        if config.train.debug_nans:
+            # every operation of the steps checked, forward and backward,
+            # as jax_debug_nans checks every primitive; anomaly mode adds
+            # the forward's traceback to an error in the backward
+            torch.autograd.set_detect_anomaly(True)
+            self.train_step = _checking_nans(self.train_step)
+            self.eval_step = _checking_nans(self.eval_step)
         self.state: Optional[TrainState] = None
         self.ckpt = CheckpointManager(config.train.checkpoint_dir,
                                       config.train.keep_checkpoints,

@@ -1,1 +1,6 @@
-"""Host utilities (no JAX)."""
+"""Host utilities: logging, profiling and debug helpers (no JAX)."""
+
+from avsum_torch.utils.logging import JsonlLogger
+from avsum_torch.utils.profiling import Timer, annotate, timed
+
+__all__ = ["JsonlLogger", "Timer", "annotate", "timed"]

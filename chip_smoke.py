@@ -96,12 +96,28 @@ raising on failure:
    and in one process from the same checkpoint; (f) the NCCL backend at
    a world of as many ranks as the machine has cards (one step of (b)'s
    config). The mesh runs are held by ``compare_train_step``'s rule
-   (parameters to 3e-4 behind the ring, JAX's bound).
+   (parameters to 3e-4 behind the ring, JAX's bound);
+13. tensor parallelism over ``model`` and the tools: (a)
+   ``configs/hour_scale.yaml``'s widths at data 1 x model 2 with the
+   state placed by ``shard_state`` and stepped with ``state_sharding``:
+   3 steps at S = 7168 with remat (K2, B3 and B4 on each rank), then 3
+   at S = 1024, dropout 0, at seq 2 x model 2, each against one process
+   by ``compare_train_step``'s rule, with each rank's step time, peak
+   memory and parameter bytes against the replicated placement's; (b)
+   ``configs/moe_ep.yaml`` at its 2 x 4 mesh under ``state_sharding``, 3
+   steps on phase 12 (c)'s batch, against phase 12 (c)'s losses and its
+   one process; (c) ``trace_to`` around a warm summarize of the long
+   video: the trace holds the JAX package's span names of the fast path
+   and K1's and K2's launches, and the device's busy share is printed;
+   (d) ``debug_nans`` raising on a NaN injected into a scorer forward
+   on the card and on one made in a backward, ``checked`` passing a
+   clean forward; (e) ``dtw_cost_device`` at 2000 x 600 on the card
+   against ``dtw_host``.
 
-Launch counts are reset just before each run of phases 3-5, 9-11 and
-12 (b) (in each rank) and read just after it; the comparisons of phases
-6-8 and 11 (c)-(e), 10 (d)'s eager scorer and the one-process runs of
-phase 12 are not counted.
+Launch counts are reset just before each run of phases 3-5, 9-11, 12 (b)
+and 13 (a) (in each rank) and (c), and read just after it; the
+comparisons of phases 6-8 and 11 (c)-(e), 10 (d)'s eager scorer and the
+one-process runs of phases 12 and 13 are not counted.
 
 The last three lines are the kernels' JSON, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -770,11 +786,20 @@ KERNEL_GROUPS = (("K2", "flash_fwd_kernel"), ("B3", "flash_bwd_dkv_kernel"),
                  ("B4", "flash_bwd_dq_kernel"), ("cuBLAS", "gemm"))
 
 
+def _device_work(evt) -> bool:
+    """A profiler event of device work: on the card, and not one of the
+    pipeline's ``annotate`` spans (``avsum.*``), which the profiler also
+    lays over the kernels they enqueued on the device's timeline."""
+    from torch.autograd import DeviceType
+
+    return (evt.device_type == DeviceType.CUDA
+            and not evt.key.startswith("avsum."))
+
+
 def profile_step(run_step, steps: int) -> None:
     """Device time of ``steps`` train steps by kernel group
     (torch.profiler), per step: K2, B3, B4, cuBLAS GEMMs and the rest."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run_step()
@@ -788,7 +813,7 @@ def profile_step(run_step, steps: int) -> None:
     wall = (time.perf_counter() - t0) / steps * 1e3
     split = {name: [0.0, 0] for name, _ in KERNEL_GROUPS + (("other", ""),)}
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or evt.self_device_time_total <= 0:
+        if not _device_work(evt) or evt.self_device_time_total <= 0:
             continue
         name = evt.key.lower()
         group = next((g for g, frag in KERNEL_GROUPS if frag.lower() in name),
@@ -1208,7 +1233,6 @@ def profile_summarize(pipeline, model, path: str) -> None:
     inside that wall, so the share is a lower bound), and the five
     largest kernels."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1217,8 +1241,7 @@ def profile_summarize(pipeline, model, path: str) -> None:
         t0 = time.perf_counter()
         pipeline.summarize(path, model)
         wall = (time.perf_counter() - t0) * 1e3
-    evts = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
+    evts = [e for e in prof.key_averages() if _device_work(e)
             and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in evts) / 1e3
     top = sorted(evts, key=lambda e: -e.self_device_time_total)[:5]
@@ -1742,12 +1765,15 @@ def _record_first_grads(state) -> list:
 
 
 def mesh_train_rank(config: str, sets: list, batch: dict, n_steps: int,
-                    backend: str = "gloo") -> dict:
-    """One rank of a phase 12 run: ``config`` with ``sets`` at its own mesh
-    over the spawned world, ``n_steps`` steps on ``batch`` -> its losses,
-    warm step times, peak memory, parameter bytes, kernel launches, and,
-    on the ranks of the first ``model`` group, its first gradients and
-    final parameters by name."""
+                    backend: str = "gloo",
+                    tensor_parallel: bool = False) -> dict:
+    """One rank of a phase 12 or 13 run: ``config`` with ``sets`` at its
+    own mesh over the spawned world (with ``tensor_parallel``, the state
+    placed by ``shard_state`` and stepped with ``state_sharding``),
+    ``n_steps`` steps on ``batch`` -> its losses, warm step times, peak
+    memory, parameter bytes, kernel launches, and, on the ranks of the
+    first ``model`` group, its first gradients and final parameters by
+    name."""
     import torch
 
     from avsum_torch.models.scorer import make_model, to_mesh
@@ -1760,10 +1786,18 @@ def mesh_train_rank(config: str, sets: list, batch: dict, n_steps: int,
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(config, sets)
     mesh = build_mesh(mesh_config(cfg.mesh), "cuda", backend)
-    model = to_mesh(make_model(cfg.model, seed=0), mesh)
-    state = steps.create_train_state(model, cfg.train, total_steps=100)
+    model, sharding = make_model(cfg.model, seed=0), None
+    if tensor_parallel:
+        state = steps.shard_state(
+            steps.create_train_state(model, cfg.train, total_steps=100), mesh)
+        sharding = steps.state_shardings(model, mesh)
+        model = state.model
+    else:
+        model = to_mesh(model, mesh)
+        state = steps.create_train_state(model, cfg.train, total_steps=100)
     first = _record_first_grads(state)
-    step = steps.make_train_step(model, mesh, seed=0)
+    step = steps.make_train_step(model, mesh, seed=0,
+                                 state_sharding=sharding)
     _reset_train_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
@@ -1815,7 +1849,7 @@ def one_process_steps(config: str, sets: list, batch: dict,
 
 
 def check_mesh_run(label: str, ranks: list, want: dict,
-                   param_tol: float) -> None:
+                   param_tol: float, phase: int = 12) -> None:
     """``compare_train_step``'s rule for a mesh run against one process:
     the losses (relative ``LOSS_RTOL``), the first gradients gathered to
     the one-device layout (``GRAD_TOL`` of each tensor's max |g|), the
@@ -1832,31 +1866,37 @@ def check_mesh_run(label: str, ranks: list, want: dict,
     params = merge_shards([r["params"] for r in lead], split, want["params"])
     loss_err = max(abs(a - b) / abs(b) for r in ranks
                    for a, b in zip(r["losses"], want["losses"]))
-    grad_err, param_err, noisy = 0.0, 0.0, 0
+    grad_err, param_err, noisy, worst = 0.0, 0.0, 0, ""
     for name, g in want["grads"].items():
         scale = max(float(np.abs(g).max()), 1e-30)
-        grad_err = max(grad_err, float(np.abs(grads[name] - g).max()) / scale)
+        err = float(np.abs(grads[name] - g).max()) / scale
+        if err > grad_err:
+            grad_err, worst = err, name
         settled = np.abs(g) >= GRAD_TOL * scale
         noisy += int((~settled).sum())
         if settled.any():
             param_err = max(param_err, float(np.abs(
                 params[name] - want["params"][name])[settled].max()))
-    print(f"phase 12 {label}: losses {[round(x, 6) for x in ranks[0]['losses']]}"
+    print(f"phase {phase} {label}: losses "
+          f"{[round(x, 6) for x in ranks[0]['losses']]}"
           f" vs one process {[round(x, 6) for x in want['losses']]} (max rel "
-          f"{loss_err:.2e}), max grad error / max|g| {grad_err:.2e}, params "
+          f"{loss_err:.2e}), max grad error / max|g| {grad_err:.2e} "
+          f"({worst}), params "
           f"max|d| {param_err:.2e} ({noisy} entries under the gradient's "
           "noise floor)")
     if loss_err > LOSS_RTOL or grad_err > GRAD_TOL or param_err > param_tol:
-        raise AssertionError(f"phase 12 {label}: the mesh run disagrees "
-                             "with one process")
+        raise AssertionError(f"phase {phase} {label}: the mesh run "
+                             "disagrees with one process")
 
 
-def _rank_summary(label: str, ranks: list, card: str) -> None:
+def _rank_summary(label: str, ranks: list, card: str,
+                  phase: int = 12) -> None:
     import numpy as np
 
     warm = [1e3 * float(np.median(r["times"][1:])) for r in ranks]
-    print(f"phase 12 {label}: warm step {np.round(warm, 1).tolist()} ms by "
-          f"rank (host clock, median after the first), peak device memory "
+    print(f"phase {phase} {label}: warm step {np.round(warm, 1).tolist()} "
+          f"ms by rank (host clock, median after the first), peak device "
+          f"memory "
           f"{[round(r['peak'], 2) for r in ranks]} GiB, parameter bytes "
           f"{[r['param_bytes'] for r in ranks]} ({card})")
 
@@ -1906,10 +1946,10 @@ def mesh_data(card: str) -> dict:
     return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
 
 
-def mesh_model(ranks_8, config: str, label: str, card: str) -> None:
+def mesh_model(ranks_8, config: str, label: str, card: str) -> tuple:
     """Phase 12 (c) / (d): ``config`` at its 2 x 4 mesh and widths, 3 steps
     against one process; each rank holds a quarter of the experts, or one
-    stage of four."""
+    stage of four -> (the ranks' results, the one process's)."""
     from avsum_torch.train.config import load_config
 
     cfg = load_config(config)
@@ -1932,6 +1972,7 @@ def mesh_model(ranks_8, config: str, label: str, card: str) -> None:
         if mine * 4 != full:
             raise AssertionError(f"phase 12 {label}: rank {r['rank']} holds "
                                  f"{mine} of {full} bytes, not a quarter")
+    return ranks, want
 
 
 def score_rank(sets: list) -> tuple:
@@ -2052,8 +2093,9 @@ def mesh_nccl(card: str) -> None:
         raise AssertionError("phase 12 (f): the NCCL run went wrong")
 
 
-def run_mesh(tmp: str, card: str, flash: dict) -> dict:
-    """Phase 12 -> K2, B3 and B4 launches of (b)'s ranks."""
+def run_mesh(tmp: str, card: str, flash: dict) -> tuple:
+    """Phase 12 -> (K2, B3 and B4 launches of (b)'s ranks, (c)'s ranks and
+    one-process run)."""
     from avsum_torch.parallel.multihost import Ranks
 
     print(card)
@@ -2063,11 +2105,243 @@ def run_mesh(tmp: str, card: str, flash: dict) -> dict:
         mesh_cli(tmp, card, ranks_4)
     n_b = mesh_data(card)
     with Ranks(8, "gloo") as ranks_8:
-        mesh_model(ranks_8, MOE_CONFIG, "(c)", card)
+        moe = mesh_model(ranks_8, MOE_CONFIG, "(c)", card)
         mesh_model(ranks_8, DEEP_CONFIG, "(d)", card)
     mesh_nccl(card)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s ({card})")
-    return n_b
+    return n_b, moe
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: tensor parallelism over `model`, the trace, the debug tools and
+# the device DTW.
+# ---------------------------------------------------------------------------
+
+TRACE_SPANS = ("avsum.detect_thread", "avsum.visual_dispatch",
+               "avsum.audio_dispatch", "avsum.shot_detect_host",
+               "avsum.visual_pool", "avsum.audio_pool", "avsum.score_select")
+DTW_RTOL = 1e-5  # device wavefront vs host DTW cost (tests/test_dtw.py)
+
+
+def tp_bytes(config: str, model_axis: int) -> tuple:
+    """(one-device parameter bytes, a rank's under ``state_shardings`` at
+    ``model_axis``) of ``config``'s scorer (rank 0 of the model group)."""
+    import torch
+
+    from avsum_torch.models.scorer import AVScorer
+    from avsum_torch.parallel.mesh import Split
+    from avsum_torch.train.config import load_config
+    from avsum_torch.train.steps import state_shardings
+
+    with torch.device("meta"):
+        model = AVScorer(load_config(config).model)
+    placed = state_shardings(model, model_axis)
+    full = mine = 0
+    for name, p in model.named_parameters():
+        size = p.numel() * p.element_size()
+        full += size
+        where = placed[name]
+        mine += (size // model_axis if isinstance(where, Split)
+                 else 0 if where is not None and ".stages.0." not in name
+                 else size)
+    return full, mine
+
+
+def _tp_bytes_check(label: str, ranks: list, config: str, m: int,
+                    replicated: int) -> None:
+    full, want = tp_bytes(config, m)
+    got = [r["param_bytes"] for r in ranks]
+    print(f"phase 13 {label}: parameter bytes a rank {got} under "
+          f"state_sharding (state_shardings: {want} of {full}; replicated "
+          f"placement, phase 12: {replicated})")
+    if any(b != want for b in got) or want >= replicated:
+        raise AssertionError(f"phase 13 {label}: a rank holds {got} bytes, "
+                             f"not {want}")
+
+
+def tp_hour(card: str, flash: dict) -> dict:
+    """Phase 13 (a): hour_scale.yaml's widths at data 1 x model 2 under
+    ``shard_state`` / ``state_sharding``: 3 steps at S = 7168 with remat
+    (K2, B3 and B4 on each rank) against one process, then 3 steps at
+    S = 1024, dropout 0, at seq 2 x model 2 (ring attention) against one
+    process -> the 7168 run's launches, summed over its ranks."""
+    from avsum_torch.parallel.multihost import Ranks
+    from avsum_torch.train.config import load_config
+
+    cfg = load_config(HOUR_CONFIG)
+    sets = ["mesh.seq=1", "mesh.model=2", "model.remat=true",
+            "train.warmup_steps=1"]
+    batch = _mesh_batch(1, 7168, cfg, 7)
+    with Ranks(2, "gloo") as ranks_2:
+        ranks = ranks_2.run(mesh_train_rank, HOUR_CONFIG, sets, batch, 3,
+                            "gloo", True)
+    want = one_process_steps(HOUR_CONFIG, sets, batch, 3)
+    _rank_summary("(a) hour_scale.yaml TP data 1 x model 2, [1, 7168] remat",
+                  ranks, card, 13)
+    print(f"phase 13 (a): one process, flash kernels (phase 8): warm "
+          f"{flash['warm']} ms, peak {flash['peak']:.2f} GiB ({card})")
+    check_mesh_run("(a) TP model 2 [1, 7168]", ranks, want, PARAM_TOL, 13)
+    _tp_bytes_check("(a)", ranks, HOUR_CONFIG, 2,
+                    sum(want["full_bytes"].values()))
+    for r in ranks:
+        print(f"phase 13 (a) rank {r['rank']}: launches {r['counts']}")
+        if min(r["counts"].values()) <= 0:
+            raise AssertionError(f"phase 13 (a): rank {r['rank']} did not "
+                                 f"run K2, B3 and B4: {r['counts']}")
+    sets = ["mesh.seq=2", "mesh.model=2", "model.dropout=0",
+            "train.warmup_steps=1"]
+    batch = _mesh_batch(1, 1024, cfg, 8)
+    with Ranks(4, "gloo") as ranks_4:
+        ring = ranks_4.run(mesh_train_rank, HOUR_CONFIG, sets, batch, 3,
+                           "gloo", True)
+    _rank_summary("(a) hour_scale.yaml TP seq 2 x model 2, [1, 1024], ring",
+                  ring, card, 13)
+    check_mesh_run("(a) TP seq 2 x model 2 [1, 1024]", ring,
+                   one_process_steps(HOUR_CONFIG, sets, batch, 3),
+                   RING_PARAM_TOL, 13)
+    return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+
+
+def tp_moe(card: str, moe: tuple) -> None:
+    """Phase 13 (b): moe_ep.yaml at its 2 x 4 mesh under ``state_sharding``,
+    3 steps on phase 12 (c)'s batch: the losses of phase 12 (c)'s
+    replicated placement (relative ``LOSS_RTOL``), and its one process by
+    ``compare_train_step``'s rule."""
+    import numpy as np
+
+    from avsum_torch.parallel.multihost import Ranks
+    from avsum_torch.train.config import load_config
+
+    replicated, want = moe
+    cfg = load_config(MOE_CONFIG)
+    batch = _mesh_batch(cfg.data.batch_videos, cfg.data.max_shots, cfg, 5)
+    with Ranks(8, "gloo") as ranks_8:
+        ranks = ranks_8.run(mesh_train_rank, MOE_CONFIG,
+                            ["train.warmup_steps=1"], batch, 3, "gloo", True)
+    _rank_summary("(b) moe_ep.yaml TP 2 x 4, [8, 128]", ranks, card, 13)
+    err = max(abs(a - b) / abs(b) for r, q in zip(ranks, replicated)
+              for a, b in zip(r["losses"], q["losses"]))
+    print(f"phase 13 (b): losses against phase 12 (c)'s placement, max rel "
+          f"{err:.2e}")
+    if err > LOSS_RTOL or not np.isfinite(err):
+        raise AssertionError("phase 13 (b): TP and phase 12 (c) disagree")
+    check_mesh_run("(b) moe_ep.yaml TP", ranks, want, PARAM_TOL, 13)
+    _tp_bytes_check("(b)", ranks, MOE_CONFIG, 4, replicated[0]["param_bytes"])
+
+
+def trace_summarize(tmp: str, pipeline, model, path: str) -> dict:
+    """Phase 13 (c): ``trace_to`` around a warm device-resident summarize
+    of ``path``: the trace holds the JAX package's span names of the fast
+    path and the launches of K1 and K2; ``collect_stages`` sees the same
+    spans -> K1 and K2 launches of the run."""
+    import glob
+
+    import torch
+
+    from avsum_torch.utils.profiling import collect_stages, trace_to
+
+    pipeline.summarize(path, model)
+    torch.cuda.synchronize()
+    _reset_k12()
+    t0 = time.perf_counter()
+    with collect_stages() as stages, trace_to(f"{tmp}/trace") as prof:
+        pipeline.summarize(path, model)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = _k12_counts()
+    (trace,) = glob.glob(f"{tmp}/trace/*.trace.json")
+    with open(trace) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if _device_work(e)) / 1e3
+    kernels = {k: sum(k in n for n in names)
+               for k in ("melspec_kernel", "flash_fwd_kernel")}
+    print(f"phase 13 (c): trace of a warm summarize of "
+          f"{os.path.basename(path)}: {os.path.getsize(trace)} bytes, "
+          f"spans {sorted(stages)}, device busy {busy:.1f} of {wall:.1f} ms "
+          f"wall ({100 * busy / wall:.0f}%, profiled), kernel names in the "
+          f"trace {kernels}, launches {counts}")
+    missing = [n for n in TRACE_SPANS if n not in names]
+    if (missing or set(stages) != set(TRACE_SPANS)
+            or min(kernels.values()) <= 0 or min(counts.values()) <= 0):
+        raise AssertionError(f"phase 13 (c): spans {missing} missing from "
+                             f"the trace, or no K1 / K2 ({kernels})")
+    return counts
+
+
+def check_debug(model) -> None:
+    """Phase 13 (d): ``debug_nans`` raises on a NaN injected into a scorer
+    forward on the card and on one made in a backward (the autograd
+    engine's device thread); ``checked`` passes a clean forward."""
+    import torch
+
+    from avsum_torch.utils.debug import checked, debug_nans
+
+    rng = torch.Generator().manual_seed(1)
+    s = 64
+    visual = torch.randn(1, s, model.config.visual_dim, generator=rng)
+    audio = torch.randn(1, s, model.config.audio_dim, generator=rng)
+    mask = torch.ones(1, s)
+    args = [t.cuda() for t in (visual, audio, mask)]
+    with torch.inference_mode():
+        scores = checked(model)(*args)
+    args[0][0, 5, 7] = float("nan")
+    caught = []
+    for what, run in (
+            ("forward", lambda: model(*args)),
+            ("backward", lambda: (torch.sqrt(torch.zeros(
+                3, device="cuda", requires_grad=True)) * 0).sum().backward())):
+        try:
+            with debug_nans():
+                run()
+        except FloatingPointError as e:
+            caught.append(f"{what}: {e}")
+    print(f"phase 13 (d): checked scorer forward [1, {s}] clean (scores "
+          f"in [{float(scores.min()):.3f}, {float(scores.max()):.3f}]); "
+          f"debug_nans raised {caught}")
+    if len(caught) != 2:
+        raise AssertionError("phase 13 (d): debug_nans missed a NaN")
+
+
+def check_dtw() -> None:
+    """Phase 13 (e): ``dtw_cost_device`` on the card at 2000 x 600 against
+    ``dtw_host`` (relative ``DTW_RTOL``), with its time."""
+    import numpy as np
+    import torch
+
+    from avsum_torch.ops.dtw import _pairwise_dist, dtw_cost_device, dtw_host
+
+    rng = np.random.default_rng(9)
+    a, b = rng.standard_normal((2000, 8)), rng.standard_normal((600, 8))
+    dist = torch.as_tensor(_pairwise_dist(a, b), dtype=torch.float32).cuda()
+    float(dtw_cost_device(dist[:50, :20]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = float(dtw_cost_device(dist))
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want, _ = dtw_host(a, b)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    rel = abs(got - want) / abs(want)
+    print(f"phase 13 (e): dtw_cost_device [2000, 600] on the card {ms:.1f} "
+          f"ms (host clock to the readback), dtw_host {host_ms:.1f} ms; cost "
+          f"{got:.4f} vs {want:.4f} (rel {rel:.2e})")
+    if rel > DTW_RTOL:
+        raise AssertionError("phase 13 (e): the device DTW disagrees")
+
+
+def run_phase13(tmp: str, card: str, flash: dict, moe: tuple, pipeline,
+                model, many: str) -> dict:
+    """Phase 13 -> the launches of its K1, K2, B3 and B4 runs."""
+    print(card)
+    t0 = time.perf_counter()
+    n_tp = tp_hour(card, flash)
+    tp_moe(card, moe)
+    n_trace = trace_summarize(tmp, pipeline, model, many)
+    check_debug(model)
+    check_dtw()
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s ({card})")
+    return {**n_tp, "melspec": n_trace["melspec"],
+            "flash_fwd": n_tp["flash_fwd"] + n_trace["flash_fwd"]}
 
 
 def main() -> int:
@@ -2153,30 +2427,34 @@ def _run_in(tmp: str, cfg, card: str, export, export4) -> int:
     k2 = check_k2(s_pad)
     b3, b4 = check_b34()
     compare_train_step()
-    n_mesh = run_mesh(tmp, card, hour_step())
+    flash = hour_step()
+    n_mesh, moe = run_mesh(tmp, card, flash)
+    n_13 = run_phase13(tmp, card, flash, moe, pipeline, model, f"{many}.y4m")
     kernels = [
         {"name": "melspec", "route": "cuda",
          "source": "avsum_torch/csrc/melspec.cu",
          "replaces": "avsum_tpu/ops/pallas_melspec.py:39",
          "launches": (n_short["melspec"] + n_many["melspec"]
                       + n_data["melspec"] + n_serve["melspec"]
-                      + n_cfg4["melspec"]), **k1},
+                      + n_cfg4["melspec"] + n_13["melspec"]), **k1},
         {"name": "flash_fwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_fwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:42",
          "launches": (n_short["flash_fwd"] + n_many["flash_fwd"]
                       + n_train["flash_fwd"] + n_data["flash_fwd"]
                       + n_serve["flash_fwd"] + n_cfg4["flash_fwd"]
-                      + n_mesh["flash_fwd"]), **k2},
+                      + n_mesh["flash_fwd"] + n_13["flash_fwd"]), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:173",
-         "launches": n_train["flash_bwd_dkv"] + n_mesh["flash_bwd_dkv"],
+         "launches": (n_train["flash_bwd_dkv"] + n_mesh["flash_bwd_dkv"]
+                      + n_13["flash_bwd_dkv"]),
          **b3},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:221",
-         "launches": n_train["flash_bwd_dq"] + n_mesh["flash_bwd_dq"],
+         "launches": (n_train["flash_bwd_dq"] + n_mesh["flash_bwd_dq"]
+                      + n_13["flash_bwd_dq"]),
          **b4},
     ]
     print(json.dumps({"kernels": kernels}))

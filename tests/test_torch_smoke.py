@@ -65,7 +65,9 @@ def test_port_has_modules_to_walk():
     assert len(PORT_FILES) > 40
     assert "avsum_torch/io/native.py" in PORT_FILES
     assert {"avsum_torch/models/moe.py", "avsum_torch/ops/chunked.py",
-            "avsum_torch/vision/vit.py"} <= set(PORT_FILES)
+            "avsum_torch/vision/vit.py", "avsum_torch/parallel/tensor.py",
+            "avsum_torch/utils/profiling.py", "avsum_torch/utils/debug.py",
+            "avsum_torch/ops/dtw.py"} <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("name", sorted(
