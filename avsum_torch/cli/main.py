@@ -6,9 +6,12 @@ JAX CLI's JSON keys. Every command runs on ``--device`` (default
 ``python -m avsum_torch.cli summarize VIDEO``. Weights: ``--weights
 FILE.pt`` holds a dict of state_dicts under "scorer", "visual" and
 "vggish" (made by ``python -m avsum_torch.convert --params/--visual/
---vggish``); a part it lacks, and every part with ``--random-init``, is
-drawn from ``--seed``. ``--checkpoint DIR`` takes the scorer's parameters
-from the port's latest training checkpoint there. Without any of them
+--vggish``); an encoder it lacks comes from the JAX package's file that
+``visual.weights`` or ``audio.vggish_weights`` names (Flax msgpack or
+``.npz``), as in the JAX CLI; any other part is drawn from ``--seed``
+(the scorer only with ``--random-init``). ``--checkpoint DIR`` takes
+the scorer's parameters from the port's latest training checkpoint
+there. Without any of them
 there is no scorer and every shot scores 1, as in the JAX CLI without
 ``--checkpoint``. ``summarize DIR`` writes one ``<video_id>.json`` per
 ``.y4m`` / ``.mp4`` into ``--output`` (default ``summaries``);
@@ -72,24 +75,24 @@ log = logging.getLogger("avsum_torch.cli")
 def build_pipeline(cfg: Config, device: str, seed: int = 0,
                    weights: Optional[dict] = None, with_scorer: bool = True):
     """-> (AVPipeline, scorer or None) with weights from ``weights`` (a
-    dict of state_dicts) or drawn from ``seed``."""
+    dict of state_dicts), else, for the encoders, from the JAX package's
+    files ``visual.weights`` and ``audio.vggish_weights``, else drawn from
+    ``seed``."""
     from avsum_torch.audio.frontend import AudioFrontend
     from avsum_torch.audio.vggish import make_audio_encoder
+    from avsum_torch.convert import vggish_file
     from avsum_torch.init import fast_init_
     from avsum_torch.pipeline import AVPipeline
     from avsum_torch.vision.backbone import DTYPES, VisualFrontend, make_backbone
 
     weights = weights or {}
     backbone = make_backbone(cfg.visual, seed, weights.get("visual"))
-    if cfg.audio.vggish_weights:
-        raise ValueError(
-            "audio.vggish_weights holds a JAX param file: write its params "
-            "to G.npz (README.md) and run `python -m avsum_torch.convert "
-            "--vggish G.npz --out w.pt`, then pass --weights w.pt")
     vggish = make_audio_encoder(cfg.audio.encoder, cfg.audio.vggish_dim,
                                 DTYPES[cfg.audio.dtype])
     if "vggish" in weights:
         vggish.load_state_dict(weights["vggish"])
+    elif cfg.audio.vggish_weights:
+        vggish.load_state_dict(vggish_file(cfg.audio.vggish_weights))
     else:
         fast_init_(vggish, seed + 1)
     pipeline = AVPipeline(cfg, VisualFrontend(cfg.visual, backbone, device),

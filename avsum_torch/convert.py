@@ -24,23 +24,29 @@ state_dicts. The inverse of ``avsum_tpu/vision/port_torch.py`` and
   ``pos_embed`` as they are, its blocks as the attention encoder's,
   ``final_norm``, and the float32 ``project``.
 
-``python -m avsum_torch.convert --params S.npz --visual V.npz --vggish
-G.npz --out FILE.pt`` turns JAX weights, saved as numpy arrays under
-their ``/``-joined Flax paths, into a dict of state_dicts for
+``python -m avsum_torch.convert --params S.npz --visual V.msgpack
+--vggish G.msgpack --out FILE.pt`` turns JAX weights into a dict of
+state_dicts for
 ``avsum_torch.cli summarize --weights FILE.pt`` (and ``preprocess``,
 ``serve``, ``export``): ``--params`` the scorer's params
 (``visual_fc/Dense_0/kernel``, ...; every temporal encoder and fusion)
 under "scorer", ``--visual`` the backbone's variables (``params/...`` and
 ``batch_stats/...``; the dual, ResNet50-only, ViT or tiny backbone) under
 "visual", ``--vggish`` the audio encoder's params (VGGish or the large
-encoder) under "vggish". At least one is needed. The ``.npz`` files are written where
-JAX is installed (README.md gives the lines); this module imports no JAX.
+encoder) under "vggish". At least one is needed. Each file is a Flax
+msgpack file, as the JAX package's ``save_params`` writes the encoders'
+weights (read by :mod:`avsum_torch.utils.serialization`), or an ``.npz``
+of numpy arrays under their ``/``-joined Flax paths (README.md gives the
+JAX-side line for a scorer's Orbax checkpoint); this module imports no
+JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import re
+import zipfile
 from typing import Dict, Mapping
 
 import numpy as np
@@ -335,15 +341,40 @@ def backbone_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return dual_backbone_from_flax(variables)
 
 
-def _load_npz(path: str) -> Dict:
-    with np.load(path) as npz:
-        return unflatten({name: npz[name] for name in npz.files})
+def load_flax_file(path: str) -> Dict:
+    """A Flax msgpack file or an ``.npz`` of ``/``-joined Flax paths (told
+    apart by the zip archive an ``.npz`` is) -> the nested dict of
+    arrays."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an Orbax checkpoint?): the port reads "
+            "Flax msgpack or .npz files; write its params to an .npz "
+            "(README.md), convert it with `python -m avsum_torch.convert "
+            "--params/--visual/--vggish X.npz --out w.pt` and pass "
+            "--weights w.pt")
+    if zipfile.is_zipfile(path):
+        with np.load(path) as npz:
+            return unflatten({name: npz[name] for name in npz.files})
+    from avsum_torch.utils.serialization import load_params
+
+    return load_params(path)
+
+
+def backbone_file(path: str) -> Dict[str, torch.Tensor]:
+    """``visual.weights`` (the backbone's variables) -> state_dict."""
+    return backbone_from_flax(load_flax_file(path))
+
+
+def vggish_file(path: str) -> Dict[str, torch.Tensor]:
+    """``audio.vggish_weights`` (the audio encoder's params) ->
+    state_dict."""
+    return vggish_from_flax(load_flax_file(path))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="convert JAX weights (.npz of /-joined Flax paths) to "
-                    "a torch file of state_dicts")
+        description="convert JAX weights (Flax msgpack, or .npz of "
+                    "/-joined Flax paths) to a torch file of state_dicts")
     ap.add_argument("--params", default=None,
                     help="the scorer's params")
     ap.add_argument("--visual", default=None,
@@ -354,11 +385,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     parts = {}
     if args.params:
-        parts["scorer"] = scorer_from_flax(_load_npz(args.params))
+        parts["scorer"] = scorer_from_flax(load_flax_file(args.params))
     if args.visual:
-        parts["visual"] = backbone_from_flax(_load_npz(args.visual))
+        parts["visual"] = backbone_file(args.visual)
     if args.vggish:
-        parts["vggish"] = vggish_from_flax(_load_npz(args.vggish))
+        parts["vggish"] = vggish_file(args.vggish)
     if not parts:
         ap.error("give at least one of --params, --visual, --vggish")
     torch.save(parts, args.out)

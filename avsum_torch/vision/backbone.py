@@ -339,15 +339,15 @@ def sample_shot_frames(
 def make_backbone(config: VisualFeatConfig, seed: int = 0,
                   state_dict: Optional[dict] = None) -> nn.Module:
     """The backbone for ``config.backbone`` (dual | resnet50 | vit | tiny)
-    in eval mode, with weights from ``state_dict`` or, without one, seeded
-    random ones.
+    in eval mode, with weights from ``state_dict``, else from the JAX
+    package's file ``config.weights`` (Flax msgpack or ``.npz``, the
+    backbone's variables), else seeded random ones.
     The ViT is ``config.vit_variant`` at ``config.resnet_size``."""
     dtype = DTYPES[config.dtype]
-    if config.weights:
-        raise ValueError(
-            "visual.weights holds a JAX param file: write its variables to "
-            "V.npz (README.md) and run `python -m avsum_torch.convert "
-            "--visual V.npz --out w.pt`, then pass --weights w.pt")
+    if state_dict is None and config.weights:
+        from avsum_torch.convert import backbone_file
+
+        state_dict = backbone_file(config.weights)
     if config.backbone == "dual":
         model = DualBackbone(dtype)
     elif config.backbone == "resnet50":

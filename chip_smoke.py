@@ -112,12 +112,27 @@ raising on failure:
    (d) ``debug_nans`` raising on a NaN injected into a scorer forward
    on the card and on one made in a backward, ``checked`` passing a
    clean forward; (e) ``dtw_cost_device`` at 2000 x 600 on the card
-   against ``dtw_host``.
+   against ``dtw_host``;
+14. the measurement entry points and the JAX package's weight files: (a)
+   ``python -m avsum_torch.bench e2e`` on ``bench.py``'s 640x360 clip (25
+   scenes, written in a process started before phase 3), its JSON line
+   printed: a positive ``e2e_video_fps``, K1 on every timed run (each run's
+   segments equal to the cold run's, or the bench fails), the fresh
+   process's ``warm_probe``; (b) ``python -m avsum_torch.bench train-hour
+   --mode chip``: the S = 7168 step with and without remat, finite losses,
+   K2, B3 and B4 launched in each; (c) ``visual.weights`` naming the JAX
+   package's msgpack file of the tiny backbone with bfloat16 leaves
+   (``tests/fixtures``), read without the ``msgpack`` package: summarize of
+   the phase 3 video (encoders in float32) against the CPU's plain path
+   from the same file and against ``--weights`` made by ``convert
+   --visual`` from it (the same weights; scores to SCORE_TOL, equal
+   segments).
 
-Launch counts are reset just before each run of phases 3-5, 9-11, 12 (b)
-and 13 (a) (in each rank) and (c), and read just after it; the
-comparisons of phases 6-8 and 11 (c)-(e), 10 (d)'s eager scorer and the
-one-process runs of phases 12 and 13 are not counted.
+Launch counts are reset just before each run of phases 3-5, 9-11, 12 (b),
+13 (a) (in each rank) and (c), and 14 (the bench's timed runs and steps,
+in its process, and (c)'s summarize on the card), and read just after it;
+the comparisons of phases 6-8 and 11 (c)-(e), 10 (d)'s eager scorer and
+the one-process runs of phases 12 and 13 are not counted.
 
 The last three lines are the kernels' JSON, the card's nvidia-smi line
 and ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
@@ -2344,6 +2359,145 @@ def run_phase13(tmp: str, card: str, flash: dict, moe: tuple, pipeline,
             "flash_fwd": n_tp["flash_fwd"] + n_trace["flash_fwd"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the measurement entry points and the JAX package's msgpack
+# weight files.
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+TINY_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                            "tiny_backbone_bf16.msgpack")
+# phase 14 (c): float32 encoders, so the card and the CPU agree to
+# SCORE_TOL on the whole summarize
+MSGPACK_SETS = ["visual.backbone=tiny", "visual.dtype=float32",
+                "audio.dtype=float32"]
+
+
+def bench_media(media_dir: str) -> str:
+    """The e2e bench's clip (bench.py's 640x360 scene clip) written into
+    ``media_dir``, in a process started before phase 3 -> its stem."""
+    from avsum_torch.bench import e2e
+
+    stem = e2e.media_stem(media_dir, e2e.SCENES)
+    e2e.ensure_media(stem, e2e.SCENES)
+    return stem
+
+
+def run_bench(*argv: str, timeout: float) -> list:
+    """``python -m avsum_torch.bench ARGV`` from the checkout -> its JSON
+    lines (its log goes to the end of a failure's message)."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "avsum_torch.bench", *argv],
+                         capture_output=True, text=True, cwd=REPO, env=env,
+                         timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"bench {list(argv)} exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+    print(f"bench {' '.join(argv)}: {time.perf_counter() - t0:.1f} s")
+    return [json.loads(line) for line in res.stdout.strip().splitlines()]
+
+
+def bench_e2e(media) -> dict:
+    """Phase 14 (a): ``python -m avsum_torch.bench e2e`` on the 120 s clip
+    -> K1 and K2 launches over its timed runs."""
+    stem = media.result()
+    (line,) = run_bench("e2e", "--media-dir", os.path.dirname(stem),
+                        timeout=900)
+    print(f"phase 14 (a) bench e2e: {json.dumps(line)}")
+    k1 = line["kernels"]["melspec"]
+    if (line["metric"] != "e2e_video_fps" or not line["value"] > 0
+            or len(k1) != len(line["runs_s"]) or min(k1) <= 0
+            or set(line["warm_probe"]) != {"build_s", "warmup_s",
+                                          "second_s"}):
+        raise AssertionError("phase 14 (a): the e2e bench's line is wrong")
+    return {k: sum(v) for k, v in line["kernels"].items()}
+
+
+def bench_train_hour() -> dict:
+    """Phase 14 (b): ``python -m avsum_torch.bench train-hour --mode chip``
+    at S = 7168, with and without remat -> K2, B3 and B4 launches."""
+    lines = run_bench("train-hour", "--mode", "chip", timeout=900)
+    for line in lines:
+        print(f"phase 14 (b) bench train-hour: {json.dumps(line)}")
+    labels = [line["label"] for line in lines]
+    if (labels != ["chip_remat_flash", "chip_norematerialize"]
+            or any(line["seq_len"] != 7168 or not math.isfinite(line["loss"])
+                   or min(line["kernels"].values()) <= 0 for line in lines)):
+        raise AssertionError("phase 14 (b): the train-hour bench's lines "
+                             "are wrong")
+    return {k: sum(line["kernels"][k] for line in lines)
+            for k in lines[0]["kernels"]}
+
+
+def check_msgpack(tmp: str, short: str, budget: float) -> dict:
+    """Phase 14 (c): ``visual.weights`` naming the JAX package's msgpack
+    file of the tiny backbone (bfloat16 leaves, tests/fixtures), VGGish and
+    the scorer from the phase 3 seed: summarize of the short video on the
+    card, against the CPU's plain path from the same file and against
+    ``--weights`` made by ``convert --visual`` from it (bitwise the same
+    weights) -> K1 launches."""
+    import numpy as np
+    import torch
+
+    from avsum_torch import convert
+    from avsum_torch.cli.main import build_pipeline
+    from avsum_torch.train.config import load_config
+
+    cfg = load_config(TVSUM_CONFIG, MSGPACK_SETS + [
+        f"visual.weights={TINY_FIXTURE}"])
+    pipeline, model = build_pipeline(cfg, "cuda", seed=SEED)
+    card_res, counts = run_summarize(pipeline, model, short, budget)
+    cpu_pipe, cpu_model = build_pipeline(cfg, "cpu", seed=SEED)
+    cpu_res = cpu_pipe.summarize(short, cpu_model)
+    convert.main(["--visual", TINY_FIXTURE, "--out", f"{tmp}/tiny.pt"])
+    conv_pipe, conv_model = build_pipeline(
+        load_config(TVSUM_CONFIG, MSGPACK_SETS), "cuda", seed=SEED,
+        weights=torch.load(f"{tmp}/tiny.pt", weights_only=True))
+    conv_res = conv_pipe.summarize(short, conv_model)
+    err = float(np.abs(card_res["scores"] - cpu_res["scores"]).max())
+    # the same weights; the scores agree to the card's rerun noise (the
+    # per-shot pooling sums with atomics, in no fixed order)
+    loaded = pipeline.visual.model.state_dict()
+    same_weights = all(torch.equal(v, loaded[k]) for k, v in
+                       conv_pipe.visual.model.state_dict().items())
+    conv_err = float(np.abs(card_res["scores"] - conv_res["scores"]).max())
+    same = (same_weights and conv_err <= SCORE_TOL
+            and np.array_equal(card_res["segments"], conv_res["segments"]))
+    import importlib.util
+
+    msgpack = importlib.util.find_spec("msgpack") is not None
+    print(f"phase 14 (c): visual.weights = the JAX package's msgpack "
+          f"(bfloat16 leaves), msgpack package installed: {msgpack} (the "
+          f"port never imports it): card vs CPU plain path "
+          f"scores max|d| {err:.3e}, segments equal "
+          f"{np.array_equal(card_res['segments'], cpu_res['segments'])}; "
+          f"against --weights from convert --visual: weights equal "
+          f"{same_weights}, scores max|d| {conv_err:.3e}, segments equal "
+          f"{np.array_equal(card_res['segments'], conv_res['segments'])}")
+    if (err > SCORE_TOL or not same or not np.array_equal(
+            card_res["boundaries"], cpu_res["boundaries"])
+            or counts["melspec"] <= 0):
+        raise AssertionError("phase 14 (c): the msgpack weights disagree")
+    return counts
+
+
+def run_phase14(tmp: str, card: str, media, short: str,
+                budget: float) -> dict:
+    """Phase 14 -> the launches of its K1, K2, B3 and B4 runs."""
+    print(card)
+    t0 = time.perf_counter()
+    n_e2e = bench_e2e(media)
+    n_train = bench_train_hour()
+    n_msgpack = check_msgpack(tmp, short, budget)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s ({card})")
+    return {"melspec": n_e2e["melspec"] + n_msgpack["melspec"],
+            "flash_fwd": (n_e2e["flash_fwd"] + n_msgpack["flash_fwd"]
+                          + n_train["flash_fwd"]),
+            "flash_bwd_dkv": n_train["flash_bwd_dkv"],
+            "flash_bwd_dq": n_train["flash_bwd_dq"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2369,18 +2523,22 @@ def main() -> int:
     cfg = load_config(TVSUM_CONFIG)
     with tempfile.TemporaryDirectory() as tmp:
         exports = (start_export(tmp), start_export(tmp, "config4", CONFIG4_A))
+        writer = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        media = writer.submit(bench_media, f"{tmp}/bench")
         try:
-            return _run_in(tmp, cfg, card, *exports)
+            return _run_in(tmp, cfg, card, *exports, media)
         finally:
+            writer.shutdown(cancel_futures=True)
             for proc, _, _ in exports:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
 
 
-def _run_in(tmp: str, cfg, card: str, export, export4) -> int:
+def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
     """Phases 3-5 and 9-11 in ``tmp``, then the kernels' checks (phases
-    6-8) and the result lines."""
+    6-8), phases 12-14 and the result lines."""
     import torch
 
     from avsum_torch.cli.main import build_pipeline
@@ -2430,31 +2588,34 @@ def _run_in(tmp: str, cfg, card: str, export, export4) -> int:
     flash = hour_step()
     n_mesh, moe = run_mesh(tmp, card, flash)
     n_13 = run_phase13(tmp, card, flash, moe, pipeline, model, f"{many}.y4m")
+    n_14 = run_phase14(tmp, card, media, f"{short}.y4m", budget)
     kernels = [
         {"name": "melspec", "route": "cuda",
          "source": "avsum_torch/csrc/melspec.cu",
          "replaces": "avsum_tpu/ops/pallas_melspec.py:39",
          "launches": (n_short["melspec"] + n_many["melspec"]
                       + n_data["melspec"] + n_serve["melspec"]
-                      + n_cfg4["melspec"] + n_13["melspec"]), **k1},
+                      + n_cfg4["melspec"] + n_13["melspec"]
+                      + n_14["melspec"]), **k1},
         {"name": "flash_fwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_fwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:42",
          "launches": (n_short["flash_fwd"] + n_many["flash_fwd"]
                       + n_train["flash_fwd"] + n_data["flash_fwd"]
                       + n_serve["flash_fwd"] + n_cfg4["flash_fwd"]
-                      + n_mesh["flash_fwd"] + n_13["flash_fwd"]), **k2},
+                      + n_mesh["flash_fwd"] + n_13["flash_fwd"]
+                      + n_14["flash_fwd"]), **k2},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:173",
          "launches": (n_train["flash_bwd_dkv"] + n_mesh["flash_bwd_dkv"]
-                      + n_13["flash_bwd_dkv"]),
+                      + n_13["flash_bwd_dkv"] + n_14["flash_bwd_dkv"]),
          **b3},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:221",
          "launches": (n_train["flash_bwd_dq"] + n_mesh["flash_bwd_dq"]
-                      + n_13["flash_bwd_dq"]),
+                      + n_13["flash_bwd_dq"] + n_14["flash_bwd_dq"]),
          **b4},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,9 @@ V.npz --vggish G.npz --params S.npz --out w.pt`` on ``.npz`` files written
 as README.md's JAX-side lines write them (``flatten_dict(..., sep="/")`` of
 random-init Flax variables: the tiny backbone, VGGish, a hidden-64
 scorer). With the converted weights the port's VisualFrontend, audio
-front-end and scorer equal the JAX package's within 1e-4 in float32; the
-refusals of ``visual.weights`` and ``audio.vggish_weights`` name that
-command."""
+front-end and scorer equal the JAX package's within 1e-4 in float32; an
+Orbax checkpoint directory named by ``visual.weights`` or
+``audio.vggish_weights`` is refused with that command."""
 
 import os
 import subprocess
@@ -156,10 +156,15 @@ def test_npz_keeps_batch_stats():
         torch.testing.assert_close(got[name], want[name])
 
 
-def test_refusals_name_the_command():
-    with pytest.raises(ValueError, match=r"avsum_torch\.convert --visual"):
-        make_backbone(VisualFeatConfig(backbone="tiny", weights="v.msgpack"))
+def test_refusals_name_the_command(tmp_path):
+    """``visual.weights`` and ``audio.vggish_weights`` load Flax msgpack
+    and ``.npz`` files (tests/test_torch_serialization.py); a directory, an
+    Orbax checkpoint, is refused with the converter's ``.npz`` route."""
+    orbax = str(tmp_path / "ckpt")
+    os.makedirs(orbax)
+    with pytest.raises(ValueError, match=r"avsum_torch\.convert --params"):
+        make_backbone(VisualFeatConfig(backbone="tiny", weights=orbax))
     cfg = load_config(overrides=["visual.backbone=tiny",
-                                 "audio.vggish_weights=g.msgpack"])
-    with pytest.raises(ValueError, match=r"avsum_torch\.convert --vggish"):
+                                 f"audio.vggish_weights={orbax}"])
+    with pytest.raises(ValueError, match=r"avsum_torch\.convert --params"):
         build_pipeline(cfg, "cpu", with_scorer=False)
