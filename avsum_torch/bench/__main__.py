@@ -1,5 +1,6 @@
-"""``python -m avsum_torch.bench {e2e,hour,train-hour} [--device cpu]
-[--config C.yaml] [--set a.b=c ...] [--seed N] [--weights W.pt]``."""
+"""``python -m avsum_torch.bench {e2e,hour,train-hour,parity} [--device
+cpu] [--config C.yaml] [--set a.b=c ...] [--seed N] [--weights W.pt]``;
+``python -m avsum_torch.bench {parity-merge,parity-rebuild} --work DIR``."""
 
 from __future__ import annotations
 
@@ -7,9 +8,18 @@ import argparse
 import logging
 import sys
 
-from avsum_torch.bench import e2e, hour, train_hour
+from avsum_torch.bench import (
+    e2e,
+    hour,
+    parity,
+    parity_merge,
+    parity_rebuild,
+    train_hour,
+)
 
-COMMANDS = {"e2e": e2e, "hour": hour, "train-hour": train_hour}
+COMMANDS = {"e2e": e2e, "hour": hour, "train-hour": train_hour,
+            "parity": parity, "parity-merge": parity_merge,
+            "parity-rebuild": parity_rebuild}
 
 
 def main(argv=None) -> int:
@@ -30,8 +40,9 @@ def main(argv=None) -> int:
                                  description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="command", required=True)
     for name, module in COMMANDS.items():
+        parents = [common] if getattr(module, "USES_DEVICE", True) else []
         module.add_arguments(sub.add_parser(
-            name, parents=[common], help=module.__doc__.splitlines()[0]))
+            name, parents=parents, help=module.__doc__.splitlines()[0]))
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(levelname)s %(name)s: %(message)s")

@@ -17,7 +17,7 @@ import numpy as np
 from avsum_torch.data.batching import VideoExample
 from avsum_torch.data.cache import FeatureCache
 from avsum_torch.data.summe import load_summe_dir
-from avsum_torch.data.tvsum import load_tvsum, tvsum_index
+from avsum_torch.data.tvsum import TVSumVideo, load_tvsum, tvsum_index
 from avsum_torch.temporal.align import frame_scores_to_shot_scores
 
 
@@ -36,7 +36,15 @@ def _attach_targets(example: VideoExample, frame_scores: np.ndarray,
 def load_tvsum_examples(cache: FeatureCache, mat_path: str,
                         video_ids: Optional[Sequence[str]] = None
                         ) -> List[VideoExample]:
-    index = tvsum_index(load_tvsum(mat_path))
+    return tvsum_examples(cache, load_tvsum(mat_path), video_ids)
+
+
+def tvsum_examples(cache: FeatureCache, videos: Sequence[TVSumVideo],
+                   video_ids: Optional[Sequence[str]] = None
+                   ) -> List[VideoExample]:
+    """:func:`load_tvsum_examples` on annotations already parsed (or made
+    in memory, as the parity harness's world makes them)."""
+    index = tvsum_index(list(videos))
     ids = video_ids if video_ids is not None else cache.video_ids()
     return [_attach_targets(cache.get(vid), index[vid].mean_scores())
             for vid in ids if vid in index and cache.has(vid)]

@@ -345,9 +345,6 @@ class Mp4VideoReader:
     (extractors.py:307-309)."""
 
     def __init__(self, path: str):
-        import imageio.v3 as iio
-
-        self._iio = iio
         self.path = path
         self._fh = open(path, "rb")
         try:
@@ -390,6 +387,17 @@ class Mp4VideoReader:
                 "`ffmpeg -i in.mp4 -c:v mjpeg -q:v 3 -c:a pcm_s16le out.mov` "
                 "(or to .y4m + .wav)"
             )
+        try:
+            # imported once the track is known to be MJPEG: without
+            # imageio the track is one this environment cannot decode, and
+            # open_video falls back to OpenCV as for any other codec
+            import imageio.v3 as iio
+        except ImportError as e:
+            self.close()
+            raise Mp4UnsupportedCodec(
+                f"{path!r}: decoding the MJPEG track needs imageio, which "
+                "is not installed") from e
+        self._iio = iio
         try:
             self._ranges = _sample_ranges(track)
         except (struct.error, ValueError, IndexError) as e:

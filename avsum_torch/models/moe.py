@@ -25,6 +25,14 @@ experts through :func:`~avsum_torch.parallel.comm.copy_to`, whose backward
 sums each rank's share of their cotangents. With ``seq`` > 1 the encoder
 gathers the shot axis (its blocks' attention has no ring, as in JAX),
 runs on the whole axis and keeps the rank's block.
+
+Tensor parallelism with an expert count that does not divide by
+``model`` (:func:`avsum_torch.parallel.tensor.parallelize` sets
+``tp_mesh``): a rank holds the block of the last axis of each expert leaf
+JAX's placement gives it (``tp_split`` names them) and gathers the
+blocks before the products with :func:`~avsum_torch.parallel.comm.
+gather_from`, whose backward keeps the rank's block of the gradient and
+sums nothing; every rank then computes the whole FFN.
 """
 
 from __future__ import annotations
@@ -43,7 +51,12 @@ from avsum_torch.models.temporal import (
     next_seed,
     sinusoidal_positions,
 )
-from avsum_torch.parallel.comm import copy_to, local_block, reduce_from
+from avsum_torch.parallel.comm import (
+    copy_to,
+    gather_from,
+    local_block,
+    reduce_from,
+)
 from avsum_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 
 EXPERT_PARAMS = ("w1", "b1", "w2", "b2")  # split over model under EP
@@ -64,6 +77,14 @@ class MoEFFN(nn.Module):
         self.w2 = nn.Parameter(torch.zeros(e, g, dim, dtype=dtype))
         self.b2 = nn.Parameter(torch.zeros(e, dim, dtype=dtype))
         self.gate = nn.Linear(dim, n_experts)  # float32 whatever the dtype
+        self.tp_mesh, self.tp_split = None, set()  # set by parallelize
+
+    def experts(self):
+        """(w1, b1, w2, b2), each split leaf gathered over ``model``."""
+        return tuple(
+            gather_from(getattr(self, name), self.tp_mesh, AXIS_MODEL, -1)
+            if name in self.tp_split else getattr(self, name)
+            for name in EXPERT_PARAMS)
 
     def combine_weights(self, x: torch.Tensor) -> torch.Tensor:
         """[B, S, F] -> [B, S, E] float32 gate weights: softmax, the
@@ -85,11 +106,12 @@ class MoEFFN(nn.Module):
                 weights, mesh, AXIS_MODEL)
             e = self.w1.shape[0]
             weights = weights[..., mesh.index(AXIS_MODEL) * e:][..., :e]
+        w1, b1, w2, b2 = self.experts()
         x = x.to(dtype)
-        h = torch.einsum("bsf,efg->besg", x.float(), self.w1.float())
-        h = F.gelu(h.to(dtype) + self.b1[None, :, None, :], approximate="tanh")
-        y = torch.einsum("besg,egf->besf", h.float(), self.w2.float())
-        y = y.to(dtype) + self.b2[None, :, None, :]
+        h = torch.einsum("bsf,efg->besg", x.float(), w1.float())
+        h = F.gelu(h.to(dtype) + b1[None, :, None, :], approximate="tanh")
+        y = torch.einsum("besg,egf->besf", h.float(), w2.float())
+        y = y.to(dtype) + b2[None, :, None, :]
         y = torch.einsum("besf,bse->bsf", y, weights.to(dtype))
         return y if mesh is None else reduce_from(y, mesh, AXIS_MODEL)
 

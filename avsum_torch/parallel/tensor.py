@@ -18,9 +18,13 @@ tensors that is (:class:`~avsum_torch.parallel.mesh.Split`):
 - the LSTM's ``wi`` [F, 4H] and ``wh`` [H, 4H] split 4H, across the
   gate boundaries; the TCN's kernel [K, Cin, Cout] splits Cout, the
   Conv1d weight's dimension 0; the MoE gate [D, E] splits E;
-- the experts keep the leading-axis split of expert parallelism (the same
-  bytes as JAX's split of their last axis) and the stages stay one a
-  rank, as without this module.
+- the experts keep the leading-axis split of expert parallelism where
+  their count divides by ``model`` (the same bytes as JAX's split of
+  their last axis); where it does not, each expert leaf splits its last
+  axis as JAX's does (``w1`` [E, F, 4F] and ``b1`` [E, 4F] split 4F,
+  ``w2`` [E, 4F, F] and ``b2`` [E, F] split F) and :class:`MoEFFN`
+  gathers the blocks before its products. The stages stay one a rank,
+  as without this module.
 
 The state is the parameters with AdamW's moments and the EMA, which
 mirror them, as JAX's opt state does.
@@ -37,8 +41,9 @@ replicated activations):
   ``comm.gather_from``, whose backward keeps the rank's block of the
   cotangent without a sum;
 - a weight used inside a recurrence or a convolution (the LSTM's ``wh``,
-  the TCN's kernels; :class:`GatheredConv1d`) is gathered before use,
-  once a layer a step, by the same ``gather_from``;
+  the TCN's kernels; :class:`GatheredConv1d`) or an expert leaf split
+  along its last axis is gathered before use, once a layer a step, by
+  the same ``gather_from``;
 - the attention core runs on the gathered q, k, v at full heads on every
   rank: the flash kernels (K2 forward, B3 and B4 backward) at S >= 512,
   the ring before them when ``seq`` > 1. GSPMD gathers around a
@@ -166,15 +171,20 @@ def state_shardings(model: nn.Module, mesh) -> Dict[str, Placement]:
     and ``model`` axis. Adam's moments and the EMA follow the parameters.
 
     Where JAX splits an expert's last axis the port splits its leading
-    (expert) axis, as expert parallelism holds it; with experts that do
-    not divide by the axis the port keeps them whole."""
+    (expert) axis, as expert parallelism holds it, when the expert count
+    divides by the axis; otherwise it splits the last axis, as JAX
+    does."""
     m = model_size(mesh)
     out: Dict[str, Placement] = {}
     for name, (shape, place) in jax_layouts(one_device(model)).items():
         if place == STAGES:
             out[name] = STAGES if m > 1 and shape[0] % m == 0 else None
-        elif place == EXPERTS:  # MoEFFN's rule for expert parallelism
-            out[name] = Split(0) if m > 1 and shape[0] % m == 0 else None
+        elif place == EXPERTS:
+            if m > 1 and shape[0] % m == 0:  # expert parallelism's rule
+                out[name] = Split(0)
+            else:
+                out[name] = (Split(len(shape) - 1)
+                             if param_partition_spec(shape, m) else None)
         else:
             out[name] = place if param_partition_spec(shape, m) else None
     return out
@@ -251,7 +261,8 @@ class GatheredConv1d(nn.Conv1d):
 def parallelize(model: nn.Module, mesh) -> Dict[str, Split]:
     """Turn ``model`` (a scorer built for ``mesh``) into its tensor-parallel
     form in place: each module with a split weight is replaced by its
-    column-parallel or gathered form holding the rank's block (values
+    column-parallel or gathered form (or, for the LSTM cell and the
+    experts, told to gather) holding the rank's block (values
     uninitialized: load them with ``shard_tensors``) -> {name: Split} of
     every split parameter, the experts' included."""
     if model_size(mesh) == 1:
@@ -269,6 +280,15 @@ def parallelize(model: nn.Module, mesh) -> Dict[str, Split]:
                 mod, mesh, weight, f"{pre}bias" in tp))
         elif isinstance(mod, nn.Conv1d) and weight is not None:
             setattr(owner, leaf, GatheredConv1d(mod, mesh))
+        elif isinstance(mod, MoEFFN) and mod.ep_mesh is None:
+            split = {name: tp[f"{pre}{name}"] for name in EXPERT_PARAMS
+                     if f"{pre}{name}" in tp}
+            if split:
+                mod.tp_mesh, mod.tp_split = mesh, set(split)
+                for name, place in split.items():
+                    p = getattr(mod, name)
+                    setattr(mod, name, _param(place.local_shape(p.shape, n),
+                                              p))
         elif isinstance(mod, LSTMCellScan) and f"{pre}wi" in tp:
             mod.tp_mesh = mesh
             for name in ("wi", "wh"):

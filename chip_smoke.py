@@ -127,10 +127,26 @@ raising on failure:
    from the same file and against ``--weights`` made by ``convert
    --visual`` from it (the same weights; scores to SCORE_TOL, equal
    segments).
+15. the F1-parity harness and the compressed-media path: (a) ``python -m
+   avsum_torch.bench parity --quick --dataset both --device cuda`` in a
+   subprocess: the quick TVSum and SumMe worlds preprocessed on the card
+   (K1 once a video: the default audio config's n_fft 400 = 2 x hop 200),
+   the reference arm trained on the CPU and the port's BiLSTM and
+   attention scorers on the card; each dataset's rows and verdicts
+   printed, every F1 finite in [0, 1], ``PARITY_F1_TORCH.{json,md}``
+   written; (b) where OpenCV and the bundled ffmpeg's AAC encoder are
+   present (else one line says which is missing and nothing more runs):
+   the dress rehearsal through the CLI on the card over 3 small mp4 files
+   (an mp4v video track, an AAC audio track, SumMe-shaped ground truth):
+   ``preprocess`` through the classic path (its stage names in the
+   sweep's log, K1 once a video, finite features), ``splits --kfold``,
+   ``train --splits --fold 0``, ``evaluate --canonical`` (F1 in [0, 1]).
 
 Launch counts are reset just before each run of phases 3-5, 9-11, 12 (b),
-13 (a) (in each rank) and (c), and 14 (the bench's timed runs and steps,
-in its process, and (c)'s summarize on the card), and read just after it;
+13 (a) (in each rank) and (c), 14 (the bench's timed runs and steps,
+in its process, and (c)'s summarize on the card) and 15 (the parity
+worlds' preprocess, in its process, and each command of (b)), and read
+just after it;
 the comparisons of phases 6-8 and 11 (c)-(e), 10 (d)'s eager scorer and
 the one-process runs of phases 12 and 13 are not counted.
 
@@ -2498,6 +2514,146 @@ def run_phase14(tmp: str, card: str, media, short: str,
             "flash_bwd_dq": n_train["flash_bwd_dq"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the F1-parity harness and the compressed-media path.
+# ---------------------------------------------------------------------------
+
+
+def parity_quick(tmp: str) -> int:
+    """Phase 15 (a): ``python -m avsum_torch.bench parity --quick
+    --dataset both`` on the card -> K1's launches in the worlds'
+    preprocess."""
+    out = f"{tmp}/parity"
+    lines = run_bench("parity", "--quick", "--dataset", "both", "--device",
+                      "cuda", "--out-dir", out, "--work-dir",
+                      f"{tmp}/parity_work", timeout=600)
+    k1 = 0
+    for line in lines:
+        print(f"phase 15 (a) {line['dataset']}: verdict {line['verdict']}; "
+              f"contenders on {line['card']}, the reference on the "
+              f"{line['reference_device']}; K1 launches in the world's "
+              f"preprocess {line['world_launches']['melspec']}")
+        for key, r in line["models"].items():
+            print(f"phase 15 (a) {line['dataset']} {key}: canonical F1 "
+                  f"{r['canonical_f1']:.4f}, keyframe F1 {r['f1']:.4f}, "
+                  f"paired delta {r.get('paired_delta_pts', '-')} pts")
+        f1s = [r[m] for r in line["models"].values()
+               for m in ("canonical_f1", "f1")]
+        if (line["device"] != "cuda" or len(line["models"]) != 3
+                or not all(math.isfinite(f) and 0 <= f <= 1 for f in f1s)
+                or line["world_launches"]["melspec"] <= 0):
+            raise AssertionError(f"phase 15 (a): {line['dataset']}'s line "
+                                 "is wrong")
+        k1 += line["world_launches"]["melspec"]
+    with open(f"{out}/PARITY_F1_TORCH.json") as fh:
+        report = json.load(fh)
+    if ([line["dataset"] for line in lines] != ["tvsum", "summe"]
+            or set(report["datasets"]) != {"tvsum", "summe"}
+            or not os.path.getsize(f"{out}/PARITY_F1_TORCH.md")):
+        raise AssertionError("phase 15 (a): the report was not written")
+    return k1
+
+
+def _compressed_video(stem: str, n_scenes: int, seed: int) -> int:
+    """``stem``.mp4: an mp4v video track and an AAC audio track -> the
+    number of frames."""
+    import cv2
+
+    from avsum_torch.io.mp4_mux import remux_video_with_aac
+    from avsum_torch.io.synthetic import make_scene_video
+
+    frames, audio, _ = make_scene_video(n_scenes=n_scenes, seed=seed,
+                                        height=72, width=96)
+    writer = cv2.VideoWriter(f"{stem}.v.mp4", cv2.VideoWriter_fourcc(
+        *"mp4v"), 30.0, (96, 72))
+    for frame in frames:
+        writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    writer.release()
+    remux_video_with_aac(f"{stem}.v.mp4", f"{stem}.mp4", audio, rate=16000)
+    os.remove(f"{stem}.v.mp4")
+    return len(frames)
+
+
+def dress_rehearsal(tmp: str) -> int:
+    """Phase 15 (b): preprocess -> splits -> train -> evaluate --canonical
+    through the CLI on the card over 3 mp4v + AAC files -> K1's launches
+    (0 and one line saying why where OpenCV or the AAC encoder is
+    missing)."""
+    import numpy as np
+
+    from avsum_torch.data import FeatureCache
+    from avsum_torch.io.cv2video import cv2_available
+    from avsum_torch.io.ffaudio import aac_encode_available
+
+    missing = [name for name, ok in (("OpenCV (cv2)", cv2_available()), (
+        "the bundled ffmpeg's AAC encoder", aac_encode_available()))
+        if not ok]
+    if missing:
+        print(f"phase 15 (b): not run: {' and '.join(missing)} not "
+              "installed")
+        return 0
+    data = f"{tmp}/compressed"
+    vdir, gt, cache_dir = f"{data}/videos", f"{data}/gt", f"{data}/cache"
+    os.makedirs(vdir)
+    os.makedirs(gt)
+    for i in range(3):
+        n = _compressed_video(f"{vdir}/cv{i}", 4, seed=300 + i)
+        _write_summe_gt(f"{gt}/cv{i}.mat", n, seed=40 + i)
+    args = ["--config", SUMME_CONFIG, "--device", "cuda"] + [
+        a for x in (f"data.cache_dir={cache_dir}", f"data.annotation_path={gt}",
+                    f"train.checkpoint_dir={data}/ckpt",
+                    f"train.log_path={data}/train.jsonl", "train.epochs=2")
+        for a in ("--set", x)]
+    sweep = _Messages()
+    logging.getLogger("avsum_torch.pipeline").addHandler(sweep)
+    try:
+        pre, _ = run_cli("phase 15 (b) preprocess", "preprocess",
+                         "--input-dir", vdir, *args)
+    finally:
+        logging.getLogger("avsum_torch.pipeline").removeHandler(sweep)
+    cached = [line for line in sweep.lines if line.startswith("cached ")]
+    for line in cached:
+        print(f"phase 15 (b) preprocess: {line}")
+    cache = FeatureCache(cache_dir)
+    finite = all(np.isfinite(cache.get(v).visual).all()
+                 and np.isfinite(cache.get(v).audio).all()
+                 for v in cache.video_ids())
+    classic = all("'visual_features'" in line and "'audio_features'" in line
+                  and "'shot_detect'" in line for line in cached)
+    if (cache.video_ids() != ["cv0", "cv1", "cv2"] or len(cached) != 3
+            or not classic or not finite or pre["melspec"] != 3):
+        raise AssertionError(f"phase 15 (b): preprocess cached "
+                             f"{cache.video_ids()}, classic path {classic}, "
+                             f"finite {finite}, K1 {pre['melspec']}")
+    splits = f"{data}/splits.json"
+    run_cli("phase 15 (b) splits", "splits", "--kfold", "--output", splits,
+            *args)
+    run_cli("phase 15 (b) train", "train", "--splits", splits, "--fold", "0",
+            *args)
+    _, out = run_cli("phase 15 (b) evaluate", "evaluate", "--splits", splits,
+                     "--fold", "0", "--canonical", *args)
+    metrics = json.loads(out.strip().splitlines()[-1])
+    print(f"phase 15 (b) evaluate --canonical: {json.dumps(metrics)}")
+    if not (metrics["n_videos"] >= 1 and 0 <= metrics["canonical_f1"] <= 1
+            and 0 <= metrics["f1"] <= 1):
+        raise AssertionError(f"phase 15 (b): evaluate gave {metrics}")
+    return pre["melspec"]
+
+
+def run_phase15(tmp: str, card: str) -> int:
+    """Phase 15 -> K1's launches."""
+    import importlib.util
+
+    print(card)
+    t0 = time.perf_counter()
+    print("phase 15: h5py importable: "
+          f"{importlib.util.find_spec('h5py') is not None} (the parity "
+          "world keeps TVSum's annotations in memory without it)")
+    k1 = parity_quick(tmp) + dress_rehearsal(tmp)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s ({card})")
+    return k1
+
+
 def main() -> int:
     try:
         import torch
@@ -2538,7 +2694,7 @@ def main() -> int:
 
 def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
     """Phases 3-5 and 9-11 in ``tmp``, then the kernels' checks (phases
-    6-8), phases 12-14 and the result lines."""
+    6-8), phases 12-15 and the result lines."""
     import torch
 
     from avsum_torch.cli.main import build_pipeline
@@ -2589,6 +2745,7 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
     n_mesh, moe = run_mesh(tmp, card, flash)
     n_13 = run_phase13(tmp, card, flash, moe, pipeline, model, f"{many}.y4m")
     n_14 = run_phase14(tmp, card, media, f"{short}.y4m", budget)
+    n_15 = run_phase15(tmp, card)
     kernels = [
         {"name": "melspec", "route": "cuda",
          "source": "avsum_torch/csrc/melspec.cu",
@@ -2596,7 +2753,7 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
          "launches": (n_short["melspec"] + n_many["melspec"]
                       + n_data["melspec"] + n_serve["melspec"]
                       + n_cfg4["melspec"] + n_13["melspec"]
-                      + n_14["melspec"]), **k1},
+                      + n_14["melspec"] + n_15), **k1},
         {"name": "flash_fwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_fwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:42",

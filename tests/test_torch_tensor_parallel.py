@@ -11,14 +11,14 @@ attention + self-fusion, BiLSTM, MoE + cross-fusion and staged scorers
 port's decision equals JAX's on that leaf, in JAX's layout (the JAX
 shape ``jax_layouts`` gives, ``param_partition_spec``, the stage rule);
 a rank's block of a split parameter holds the ids of JAX's shard on the
-device of that ``model`` coordinate (the experts: the same count, split
-along the expert axis); a rank's element count equals JAX's per-device
+device of that ``model`` coordinate (the experts under expert parallelism:
+the same count, split along the expert axis); a rank's element count equals JAX's per-device
 shard size, both as computed and in the scorer the ranks build.
 
 Steps (3, dropout 0.1) against one process on the same padded batches:
 the attention scorer at data 2 x model 2 and at seq 2 x model 2 with
-padded shots (ring attention under TP), the MoE + cross scorer, the
-BiLSTM, the TCN and the staged scorer: losses 1e-5 relative, the first
+padded shots (ring attention under TP), the MoE + cross scorer, the MoE
+with 3 experts, the BiLSTM, the TCN and the staged scorer: losses 1e-5 relative, the first
 step's gradients gathered to the one-device layout 1e-5 of each
 tensor's max |g|, parameters 5e-5 (3e-4 behind the ring), the key third
 of each qkv bias (and cross fusion's kv bias) excluded as in
@@ -61,6 +61,7 @@ TRAIN = dict(lr=3e-3, warmup_steps=1, seed=3)
 ATTENTION = dict(temporal_encoder="attention")
 BILSTM = dict(temporal_encoder="bilstm")
 MOE_CROSS = dict(temporal_encoder="moe", moe_experts=4, fusion="cross")
+MOE3 = dict(temporal_encoder="moe", moe_experts=3)  # experts not dividing
 TCN = dict(temporal_encoder="tcn")
 
 
@@ -69,13 +70,14 @@ def staged(m: int) -> dict:
 
 
 SCORERS = {"attention": lambda m: ATTENTION, "bilstm": lambda m: BILSTM,
-           "moe_cross": lambda m: MOE_CROSS, "staged": staged,
-           "tcn": lambda m: TCN}
+           "moe_cross": lambda m: MOE_CROSS, "moe3": lambda m: MOE3,
+           "staged": staged, "tcn": lambda m: TCN}
 STEP_CASES = {  # name: (model fields, mesh fields, B, S, parameter tol)
     "attention_data2_model2": (ATTENTION, dict(model=2), 4, 16, 5e-5),
     "attention_seq2_model2": (ATTENTION, dict(data=1, seq=2, model=2,
                                               auto_data=False), 2, 14, 3e-4),
     "moe_cross_data2_model2": (MOE_CROSS, dict(model=2), 4, 16, 5e-5),
+    "moe3_data2_model2": (MOE3, dict(model=2), 4, 16, 5e-5),
     "bilstm_model4": (BILSTM, dict(model=4), 2, 12, 5e-5),
     "tcn_data2_model2": (TCN, dict(model=2), 4, 16, 5e-5),
     "staged_data2_model2": (staged(2), dict(model=2), 4, 16, 5e-5),
@@ -277,7 +279,8 @@ def test_placement_matches_jax_state_shardings(family, m):
                 else:
                     held.append(sd[name].ravel())
             held = np.concatenate(held)
-            if ".moe_ffn.w" in names[0] or ".moe_ffn.b" in names[0]:
+            if placed[names[0]] == Split() and (".moe_ffn.w" in names[0]
+                                                or ".moe_ffn.b" in names[0]):
                 assert held.size == want.size, names  # the expert axis
             else:
                 np.testing.assert_array_equal(np.sort(held),
@@ -300,7 +303,7 @@ def test_param_partition_spec_on_test_model_axis_shapes():
 
 @pytest.mark.parametrize("m", [2, 4])
 @pytest.mark.parametrize("family", ["attention", "bilstm", "moe_cross",
-                                    "staged"])
+                                    "moe3", "staged"])
 def test_rank_element_count_is_jax_shard_size(ranks, family, m):
     fields = SCORERS[family](m)
     ids, shardings, mesh, _, _ = _jax_placement(fields, m)
