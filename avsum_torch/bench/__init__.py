@@ -57,6 +57,15 @@ def on_card(device: str) -> bool:
     return torch.device(device).type == "cuda"
 
 
+def tf32_off(device: str) -> None:
+    """TF32 off for matmuls and cuDNN on the card (float32 products stay
+    float32, the port's parity setting); process-wide, so every spawned
+    rank sets it too."""
+    if on_card(device):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def card(device: str) -> Optional[str]:
     """nvidia-smi's name and power limit of the card, None on the CPU."""
     if not on_card(device):

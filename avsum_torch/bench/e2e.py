@@ -96,13 +96,12 @@ def _setup(args):
     return cfg, pipeline, model, time.perf_counter() - t0
 
 
-def embed_flops_per_frame(pipeline) -> float:
-    """FLOPs of one frame through the backbone at the shipped size
-    (``FlopCounterMode`` on a meta-device copy: nothing runs)."""
+def embed_flops_per_frame(model, ship: int) -> float:
+    """FLOPs of one ``ship`` x ``ship`` frame through the backbone
+    ``model`` (``FlopCounterMode`` on a meta-device copy: nothing runs)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    ship = pipeline.config.visual.ship_size
-    meta = copy.deepcopy(pipeline.visual.model).to("meta")
+    meta = copy.deepcopy(model).to("meta")
     frames = torch.zeros((1, ship, ship, 3), device="meta")
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         meta(frames)
@@ -236,7 +235,7 @@ def run(args) -> int:
     fps = float(first["fps"])
     n_embedded = len(range(0, n_frames,
                            max(1, round(fps / cfg.visual.sample_fps))))
-    fpf = embed_flops_per_frame(pipeline)
+    fpf = embed_flops_per_frame(pipeline.visual.model, cfg.visual.ship_size)
     card_metrics = {"mfu_lower_bound_pct": None,
                     "embed_program_ms_per_frame": None,
                     "embed_program_mfu_pct": None, "device_busy_pct": None}

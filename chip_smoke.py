@@ -141,12 +141,32 @@ raising on failure:
    ``preprocess`` through the classic path (its stage names in the
    sweep's log, K1 once a video, finite features), ``splits --kfold``,
    ``train --splits --fold 0``, ``evaluate --canonical`` (F1 in [0, 1]).
+16. the JAX side's experiment scripts as bench commands, each in a
+   subprocess on the card, and deep_pp.yaml under ``state_sharding``: (a)
+   ``bench ppep`` at full width (hidden 512; deep_pp's 12 blocks in 4
+   stages, moe_ep's 8 experts, top 2) on a 10-video parity world, 3
+   epochs, one seed, with ``--mesh-one`` and at the contenders' own
+   meshes (8 gloo ranks sharing the card) on the same world: every F1
+   in [0, 1], the same parameter counts in both placements, K1 once a
+   world video; (b)
+   ``bench pp-equality 3`` on 8 ranks: every parameter of the GPipe run
+   within 5e-5 of the data mesh's; (c) ``bench deep-pp-curve --epochs 20
+   --eval-every 10`` on (a)'s world: two finite points and the schedule
+   it ran; (d) ``bench embed-sweep`` of the dual bf16 backbone at ship
+   304 (batches 128 and 256, each backbone alone at 128); (e) ``bench
+   embed-ab --batches 256,512 --rounds 2`` on phase 14's clip, identical
+   segments at both batches; (f) ``configs/deep_pp.yaml`` at its 2 x 4
+   mesh under ``state_sharding``, 3 steps against phase 12 (d)'s losses
+   and its one process by ``compare_train_step``'s rule, each rank's
+   parameter bytes against the computed 82,177,540. (b) runs in the
+   background during (a)'s one-process run and (c), which time nothing.
 
 Launch counts are reset just before each run of phases 3-5, 9-11, 12 (b),
 13 (a) (in each rank) and (c), 14 (the bench's timed runs and steps,
-in its process, and (c)'s summarize on the card) and 15 (the parity
-worlds' preprocess, in its process, and each command of (b)), and read
-just after it;
+in its process, and (c)'s summarize on the card), 15 (the parity
+worlds' preprocess, in its process, and each command of (b)) and 16 (the
+ppep and curve worlds' preprocess and the A/B's timed summarizes, each in
+its process), and read just after it;
 the comparisons of phases 6-8 and 11 (c)-(e), 10 (d)'s eager scorer and
 the one-process runs of phases 12 and 13 are not counted.
 
@@ -2126,7 +2146,7 @@ def mesh_nccl(card: str) -> None:
 
 def run_mesh(tmp: str, card: str, flash: dict) -> tuple:
     """Phase 12 -> (K2, B3 and B4 launches of (b)'s ranks, (c)'s ranks and
-    one-process run)."""
+    one-process run, (d)'s)."""
     from avsum_torch.parallel.multihost import Ranks
 
     print(card)
@@ -2137,10 +2157,10 @@ def run_mesh(tmp: str, card: str, flash: dict) -> tuple:
     n_b = mesh_data(card)
     with Ranks(8, "gloo") as ranks_8:
         moe = mesh_model(ranks_8, MOE_CONFIG, "(c)", card)
-        mesh_model(ranks_8, DEEP_CONFIG, "(d)", card)
+        deep = mesh_model(ranks_8, DEEP_CONFIG, "(d)", card)
     mesh_nccl(card)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s ({card})")
-    return n_b, moe
+    return n_b, moe, deep
 
 
 # ---------------------------------------------------------------------------
@@ -2179,15 +2199,15 @@ def tp_bytes(config: str, model_axis: int) -> tuple:
 
 
 def _tp_bytes_check(label: str, ranks: list, config: str, m: int,
-                    replicated: int) -> None:
+                    replicated: int, phase: int = 13) -> None:
     full, want = tp_bytes(config, m)
     got = [r["param_bytes"] for r in ranks]
-    print(f"phase 13 {label}: parameter bytes a rank {got} under "
+    print(f"phase {phase} {label}: parameter bytes a rank {got} under "
           f"state_sharding (state_shardings: {want} of {full}; replicated "
           f"placement, phase 12: {replicated})")
     if any(b != want for b in got) or want >= replicated:
-        raise AssertionError(f"phase 13 {label}: a rank holds {got} bytes, "
-                             f"not {want}")
+        raise AssertionError(f"phase {phase} {label}: a rank holds {got} "
+                             f"bytes, not {want}")
 
 
 def tp_hour(card: str, flash: dict) -> dict:
@@ -2399,19 +2419,38 @@ def bench_media(media_dir: str) -> str:
     return stem
 
 
+def start_bench(*argv: str) -> tuple:
+    """``python -m avsum_torch.bench ARGV`` from the checkout, started ->
+    what :func:`end_bench` waits for."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.Popen([sys.executable, "-m", "avsum_torch.bench",
+                             *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=env)
+    return proc, argv, time.perf_counter()
+
+
+def end_bench(started: tuple, timeout: float) -> list:
+    """The JSON lines of a command :func:`start_bench` started (its log
+    goes to the end of a failure's message); killed at ``timeout``."""
+    proc, argv, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {list(argv)} exited {proc.returncode}:"
+                             f"\n{err[-4000:]}")
+    print(f"bench {' '.join(argv)}: {time.perf_counter() - t0:.1f} s")
+    return [json.loads(line) for line in out.strip().splitlines()]
+
+
 def run_bench(*argv: str, timeout: float) -> list:
     """``python -m avsum_torch.bench ARGV`` from the checkout -> its JSON
-    lines (its log goes to the end of a failure's message)."""
-    env = {**os.environ, "PYTHONPATH": REPO}
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "avsum_torch.bench", *argv],
-                         capture_output=True, text=True, cwd=REPO, env=env,
-                         timeout=timeout)
-    if res.returncode != 0:
-        raise AssertionError(f"bench {list(argv)} exited {res.returncode}:\n"
-                             f"{res.stderr[-4000:]}")
-    print(f"bench {' '.join(argv)}: {time.perf_counter() - t0:.1f} s")
-    return [json.loads(line) for line in res.stdout.strip().splitlines()]
+    lines."""
+    return end_bench(start_bench(*argv), timeout)
 
 
 def bench_e2e(media) -> dict:
@@ -2654,6 +2693,188 @@ def run_phase15(tmp: str, card: str) -> int:
     return k1
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the JAX side's experiment scripts as bench commands, and
+# deep_pp.yaml under state_sharding.
+# ---------------------------------------------------------------------------
+
+PPEP_VIDEOS = 10  # phase 16 (a)'s world: 8 train and 2 held-out videos
+PP_EQ_ATOL = 5e-5  # JAX's test_pp_training_math_equals_sequential
+DEEP_BYTES = 82_177_540  # deep_pp.yaml's parameter bytes a rank, computed
+EMBED_PLAN = "base:128,256;resnet_only:128;inception_only:128"
+
+
+def _unit(x) -> bool:
+    return math.isfinite(x) and 0 <= x <= 1
+
+
+def ppep_run(tmp: str, i: int) -> tuple:
+    """Phase 16 (a): ``bench ppep`` at full width (hidden 512) on a
+    10-video world, 3 epochs, one seed: in one process (``--mesh-one``,
+    ``i`` 0, building the world), or at the contenders' own meshes (8
+    gloo ranks sharing the card, ``i`` 1, on the cached world) -> (K1's
+    launches in the world's preprocess, the parameter counts)."""
+    label, extra = (("one process", ["--mesh-one"]), ("own meshes", []))[i]
+    lines = run_bench(
+        "ppep", "--device", "cuda", "--n-videos", str(PPEP_VIDEOS),
+        "--epochs", "3", "--n-seeds", "1", "--work-dir", f"{tmp}/ppep",
+        "--out", f"{tmp}/ppep{i}.json", *extra, timeout=900)
+    *rows, last = lines
+    for r in rows:
+        print(f"phase 16 (a) ppep {label} {r['config']}: canonical F1 "
+              f"{r['canonical_f1']}, keyframe F1 {r['keyframe_f1']}, "
+              f"step {r['step_ms']} ms, warm-up {r['warmup_s']} s, "
+              f"{r['n_params']} parameters, mesh {r['mesh']}, "
+              f"{r['ranks']} rank(s) over {r['dist_backend']}")
+    k = last["world_launches"]["melspec"]
+    medians = {n: v["step_ms_median"] for n, v in last["summary"].items()}
+    print(f"phase 16 (a) ppep {label}: step medians {medians}; K1 "
+          f"launches in the world's preprocess {k}")
+    f1s = [f for r in rows for f in (r["canonical_f1"], r["keyframe_f1"],
+                                     *r["video_canonical_f1"].values())]
+    if ([r["config"] for r in rows] != ["flagship_attention", "deep_pp",
+                                        "moe_ep"]
+            or not all(map(_unit, f1s))
+            or k != (PPEP_VIDEOS if i == 0 else 0)
+            or any(r["ranks"] != (1, 8)[i] or r["device"] != "cuda"
+                   for r in rows)):
+        raise AssertionError(f"phase 16 (a): ppep {label} went wrong")
+    return k, {r["config"]: r["n_params"] for r in rows}
+
+
+def pp_equality(started: tuple) -> None:
+    """Phase 16 (b): ``bench pp-equality 3`` on 8 gloo ranks sharing the
+    card (``started`` by :func:`start_bench`): the GPipe run's parameters
+    against the data mesh's."""
+    (line,) = end_bench(started, timeout=600)
+    print(f"phase 16 (b) pp-equality: {line['n_leaves']} leaves, worst "
+          f"|d| {line['worst_abs']:.3e}, worst relative {line['worst_rel']} "
+          f"({line['worst_leaf']}), {line['n_leaves_over_1e-3_rel']} over "
+          f"1e-3 relative, meshes {line['meshes']}")
+    if line["ranks"] != 8 or not line["worst_abs"] <= PP_EQ_ATOL:
+        raise AssertionError("phase 16 (b): GPipe training differs from the "
+                             "data mesh's")
+
+
+def deep_pp_curve(tmp: str) -> int:
+    """Phase 16 (c): ``bench deep-pp-curve --epochs 20 --eval-every 10`` at
+    full width on (a)'s world (its cache reused) -> K1's launches (none:
+    the world is cached)."""
+    out = f"{tmp}/deep_pp_curve.json"
+    (*_, last) = run_bench(
+        "deep-pp-curve", "--device", "cuda", "--epochs", "20",
+        "--eval-every", "10", "--n-videos", str(PPEP_VIDEOS), "--work-dir",
+        f"{tmp}/ppep", "--out", out, timeout=600)
+    with open(out) as fh:
+        result = json.load(fh)
+    for point in result["curve"]:
+        print(f"phase 16 (c) deep-pp-curve: {json.dumps(point)}")
+    print(f"phase 16 (c): schedule total_steps {result['total_steps']}, "
+          f"ema_decay {result['ema_decay']}, warm-up "
+          f"{result['warmup_steps_run']} steps, {result['steps_per_epoch']} "
+          f"steps an epoch")
+    values = [v for p in result["curve"] for v in p.values()]
+    if ([p["epoch"] for p in result["curve"]] != [10, 20]
+            or not all(map(math.isfinite, values))
+            or not all(_unit(p["canonical_f1"]) for p in result["curve"])
+            or (result["total_steps"], result["ema_decay"]) != (10_000, 0.98)):
+        raise AssertionError("phase 16 (c): the curve is wrong")
+    return last["world_launches"]["melspec"]
+
+
+def embed_sweep() -> None:
+    """Phase 16 (d): ``bench embed-sweep`` of the dual bf16 backbone at
+    ship 304, batches 128 and 256, and each backbone alone at 128."""
+    *rows, best = run_bench("embed-sweep", "--device", "cuda", "--plan",
+                            EMBED_PLAN, "--ship", "304", timeout=600)
+    for r in rows:
+        print(f"phase 16 (d) embed-sweep {r['variant']} {r['batch']}: "
+              f"{r.get('ms_per_frame')} ms a frame, "
+              f"{r.get('gflops_per_frame')} GFLOP a frame, MFU "
+              f"{r.get('mfu_pct')}% (set-up {r.get('compile_s')} s)")
+    cells = [(r["variant"], r["batch"]) for r in rows]
+    if (cells != [("base", 128), ("base", 256), ("resnet_only", 128),
+                  ("inception_only", 128)]
+            or any("error" in r or not r["mfu_pct"] > 0 for r in rows)
+            or "best" not in best):
+        raise AssertionError("phase 16 (d): the sweep went wrong")
+
+
+def embed_ab(media) -> int:
+    """Phase 16 (e): ``bench embed-ab --batches 256,512 --rounds 2`` on
+    phase 14's clip -> K1's launches over the timed summarizes."""
+    stem = media.result()
+    (line,) = run_bench("embed-ab", "--device", "cuda", "--batches",
+                        "256,512", "--rounds", "2", "--media-dir",
+                        os.path.dirname(stem), timeout=600)
+    print(f"phase 16 (e) embed-ab: {json.dumps(line)}")
+    k1 = line["kernels"]["melspec"]
+    if (not line["identical_segments"] or set(line["per_batch"]) != {
+            "256", "512"} or k1 != 4):
+        raise AssertionError("phase 16 (e): the A/B went wrong")
+    return k1
+
+
+def tp_deep(card: str, deep: tuple, ranks_8) -> None:
+    """Phase 16 (f): deep_pp.yaml at its 2 x 4 mesh under
+    ``state_sharding`` on ``ranks_8``, 3 steps on phase 12 (d)'s batch,
+    against phase 12 (d)'s losses and its one process, with each rank's
+    parameter bytes beside the computed 82,177,540."""
+    import numpy as np
+
+    from avsum_torch.train.config import load_config
+
+    replicated, want = deep
+    cfg = load_config(DEEP_CONFIG)
+    batch = _mesh_batch(cfg.data.batch_videos, cfg.data.max_shots, cfg, 5)
+    ranks = ranks_8.run(mesh_train_rank, DEEP_CONFIG, ["train.warmup_steps=1"],
+                        batch, 3, "gloo", True)
+    _rank_summary("(f) deep_pp.yaml TP 2 x 4, [8, 128]", ranks, card, 16)
+    err = max(abs(a - b) / abs(b) for r, q in zip(ranks, replicated)
+              for a, b in zip(r["losses"], q["losses"]))
+    print(f"phase 16 (f): losses against phase 12 (d)'s placement, max rel "
+          f"{err:.2e}; parameter bytes a rank "
+          f"{[r['param_bytes'] for r in ranks]}, computed {DEEP_BYTES}")
+    if err > LOSS_RTOL or not np.isfinite(err):
+        raise AssertionError("phase 16 (f): TP and phase 12 (d) disagree")
+    check_mesh_run("(f) deep_pp.yaml TP", ranks, want, PARAM_TOL, 16)
+    _tp_bytes_check("(f)", ranks, DEEP_CONFIG, 4,
+                    replicated[0]["param_bytes"], 16)
+    if any(r["param_bytes"] != DEEP_BYTES for r in ranks):
+        raise AssertionError("phase 16 (f): bytes a rank differ from the "
+                             "computed count")
+
+
+def run_phase16(tmp: str, card: str, media, deep: tuple) -> int:
+    """Phase 16 -> K1's launches. (b) runs on its ranks while (a)'s
+    one-process run and (c) run (their checks time nothing); (f)'s ranks
+    start with the phase and wait for it; (d) and (e), which time the
+    card, run alone."""
+    from avsum_torch.parallel.multihost import Ranks
+
+    print(card)
+    t0 = time.perf_counter()
+    equality = start_bench("pp-equality", "3", "--device", "cuda")
+    try:
+        with Ranks(8, "gloo") as ranks_8:
+            k1, one = ppep_run(tmp, 0)
+            k1 += deep_pp_curve(tmp)
+            pp_equality(equality)
+            embed_sweep()
+            k1 += embed_ab(media)
+            k_own, own = ppep_run(tmp, 1)
+            if one != own:
+                raise AssertionError(f"phase 16 (a): parameter counts {one} "
+                                     f"in one process, {own} at the meshes")
+            tp_deep(card, deep, ranks_8)
+    finally:
+        if equality[0].poll() is None:
+            equality[0].kill()
+            equality[0].communicate()
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s ({card})")
+    return k1 + k_own
+
+
 def main() -> int:
     try:
         import torch
@@ -2742,10 +2963,11 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
     b3, b4 = check_b34()
     compare_train_step()
     flash = hour_step()
-    n_mesh, moe = run_mesh(tmp, card, flash)
+    n_mesh, moe, deep = run_mesh(tmp, card, flash)
     n_13 = run_phase13(tmp, card, flash, moe, pipeline, model, f"{many}.y4m")
     n_14 = run_phase14(tmp, card, media, f"{short}.y4m", budget)
     n_15 = run_phase15(tmp, card)
+    n_16 = run_phase16(tmp, card, media, deep)
     kernels = [
         {"name": "melspec", "route": "cuda",
          "source": "avsum_torch/csrc/melspec.cu",
@@ -2753,7 +2975,7 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
          "launches": (n_short["melspec"] + n_many["melspec"]
                       + n_data["melspec"] + n_serve["melspec"]
                       + n_cfg4["melspec"] + n_13["melspec"]
-                      + n_14["melspec"] + n_15), **k1},
+                      + n_14["melspec"] + n_15 + n_16), **k1},
         {"name": "flash_fwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_fwd.cu",
          "replaces": "avsum_tpu/ops/attention.py:42",

@@ -16,6 +16,7 @@ import pytest
 
 from avsum_tpu.data import batching as jax_batching
 from avsum_tpu.data.cache import FeatureCache as JaxFeatureCache
+from avsum_tpu.data.synthetic import make_synthetic_videos as jax_videos
 from avsum_tpu.io import mp4_mux as jax_mp4_mux
 from avsum_tpu.io import synthetic as jax_synthetic
 from avsum_tpu.io import video as jax_video
@@ -24,6 +25,7 @@ from avsum_tpu.io.mp4 import load_mp4_audio_mono_16k as jax_load_mp4_audio
 from avsum_tpu.train.config import load_config as jax_load_config
 from avsum_torch.data import batching
 from avsum_torch.data.cache import FeatureCache
+from avsum_torch.data.synthetic import make_synthetic_videos
 from avsum_torch.io import mp4_mux, synthetic, video, wav
 from avsum_torch.io.mp4 import load_mp4_audio_mono_16k
 from avsum_torch.train.config import load_config
@@ -71,7 +73,12 @@ def test_port_has_modules_to_walk():
             "avsum_torch/utils/profiling.py", "avsum_torch/utils/debug.py",
             "avsum_torch/ops/dtw.py", "avsum_torch/utils/serialization.py",
             "avsum_torch/bench/e2e.py", "avsum_torch/bench/hour.py",
-            "avsum_torch/bench/train_hour.py"} <= set(PORT_FILES)
+            "avsum_torch/bench/train_hour.py", "avsum_torch/bench/ppep.py",
+            "avsum_torch/bench/pp_equality.py",
+            "avsum_torch/bench/deep_pp_curve.py",
+            "avsum_torch/bench/embed_sweep.py",
+            "avsum_torch/bench/embed_ab.py",
+            "avsum_torch/data/synthetic.py"} <= set(PORT_FILES)
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -170,6 +177,17 @@ def test_batches_equal():
         assert set(a) == set(b) == {"visual", "audio", "targets", "mask"}
         for key in b:
             np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_synthetic_videos_equal():
+    kw = dict(n_videos=4, min_shots=3, max_shots=9, visual_dim=16,
+              audio_dim=8, seed=5)
+    ours, theirs = make_synthetic_videos(**kw), jax_videos(**kw)
+    assert [type(v).__module__ for v in ours] == [batching.__name__] * 4
+    for a, b in zip(ours, theirs):
+        assert dataclasses.asdict(a).keys() == dataclasses.asdict(b).keys()
+        for key, value in dataclasses.asdict(b).items():
+            np.testing.assert_array_equal(getattr(a, key), value)
 
 
 def test_chip_smoke_gives_no_result_without_a_card():
