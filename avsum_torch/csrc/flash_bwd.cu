@@ -16,442 +16,655 @@
 //
 // Layout: q, k, v, dO are [B, S, H, D] views read through their (b, s, h)
 // strides with a unit stride on D (q, k, v are slices of the scorer's
-// fused qkv projection; dO is whatever autograd hands the Function).
-// LSE and delta are [B, H, S]; dQ, dK, dV are [B, S, H, D] contiguous.
-// Rows past S (the ragged last tile) are loaded as zeros, get P = 0 and
-// are never written, so S needs no padding. Masked keys have bias -1e30,
-// so P is exactly 0 there. A query row whose keys are all masked has
-// LSE = -1e30 in float32, so its recomputed P is 1 rather than 1/S (the
-// TPU kernel does the same); the scorer multiplies every attention
-// output by the mask, so dO, and with it every gradient term from such a
-// row, is 0.
+// fused qkv projection; dO is whatever autograd hands the Function); the
+// strides must be multiples of 4 floats and the base addresses 16-byte
+// aligned, as TMA needs (the wrapper copies a tensor that is not). LSE
+// and delta are [B, H, S]; dQ, dK, dV are [B, S, H, D] contiguous. Rows
+// past S (the ragged last tile) land as zeros, get P = 0 and are never
+// written, so S needs no padding. Masked keys have bias -1e30, so P is
+// exactly 0 there. A query row whose keys are all masked has LSE = -1e30
+// in float32, so its recomputed P is 1 rather than 1/S (the TPU kernel
+// does the same); the scorer multiplies every attention output by the
+// mask, so dO, and with it every gradient term from such a row, is 0.
 //
-// What bounds it on an H100: arithmetic. B3 does 8 * S^2 * D flops per
+// What bounds them on an H100: arithmetic. B3 does 8 * S^2 * D flops per
 // head (four S x S x D products, counting the recomputed scores), B4
-// 6 * S^2 * D (three), against O(S * D) bytes: at [1, 1024, 4, 256], 16.8
-// MB of q, k, v, dO (5 us at 3.35 TB/s) against 8.6 and 6.4 GFLOP, which
-// in 3xTF32 (three TF32 products each) take at least 52 and 39 us at the
-// dense TF32 peak of 495 TFLOP/s. The TPU grid walked its inner blocks in
-// order, carrying dK/dV (or dQ) in VMEM scratch; here one block owns
-// (b, h, 32 rows) and loops over the 32-row tiles of the other side
-// itself, with its accumulators in registers.
+// 6 * S^2 * D (three), against O(S * D) bytes; in 3xTF32 (three TF32
+// products each) at the dense TF32 peak of 495 TFLOP/s that is at least
+// 2.55 and 1.91 ms at [1, 7168, 4, 256], 52 and 39 us at [1, 1024, 4, 256],
+// where q, k, v and dO take 5 us at 3.35 TB/s.
 //
-// Both run every product on the tensor cores, mma.sync m16n8k8 TF32 in
-// the 3xTF32 split for float32-level accuracy (mma_tf32.cuh; see the
-// notes above the kernels for their tilings). mma.sync rather than wgmma:
-// a wgmma takes 64 rows, so 64-row blocks (64 blocks at [1, 1024, 4, D]
-// on 132 SMs) or 64-row tiles, and its shared-memory B operands would
-// need split (big, small) planes of every streamed tile, which at
-// D = 256 do not fit beside the double buffers; mma.sync's fragments are
-// split in registers as they are loaded, and P and dS go through shared
-// memory in the layouts the last products take. The streamed and the
-// resident tiles arrive by 16-byte cp.async into XOR-swizzled rows
-// (mma_tf32.cuh), so the (b, s, h) strides of q, k, v and dout must be
-// multiples of 4 floats and their base addresses 16-byte aligned (the
-// wrapper copies a tensor that is not). Block shape: 32 rows, so
-// [1, 1024, 4, D] is 128 blocks, one wave on 132 SMs (a 64-row block
-// would leave half the SMs idle), and S = 7168 is 896. At D = 256 their
-// tiles are ~203 KB of shared memory, one block per SM; at D = 128
-// ~107 KB, two.
+// Design (both kernels; the TPU grid walked its inner blocks in order
+// with VMEM scratch, here a block loops over them itself). A block owns
+// kBlock = 32 rows of the resident side (keys in B3, queries in B4) and
+// streams the other side (T1, T2: B3 Q, dO; B4 K, V) in tiles of kTile =
+// 64 rows. Every product runs on wgmma m64n32k8 TF32 in the 3xTF32 split
+// (mma_tf32.cuh): A from registers, B read from shared memory, K-major
+// (TF32 has no transposed B), and the block's 32 resident rows are the
+// N of every product:
+//   - Two warpgroups share the work by role. Over D, with the tile's 64
+//     streamed rows as M and the resident rows as B: group 0 computes X =
+//     T1 R1^T and P = exp(X * scale + bias - LSE) (B3 S = Q K^T; B4 S^T =
+//     K Q^T), group 1 Y = T2 R2^T and dS = P o (Y - delta) (B3 dP = dO V^T;
+//     B4 dP^T = V dO^T), reading P back from the planes group 0 writes.
+//     Over the tile, with D as M and P or dS as B, the groups take the
+//     64-row m-tiles of D in turn: B3 dV^T += T2^T P and dK^T += T1^T dS
+//     (each group one of the two at every m-tile), B4 dQ^T += T1^T dS^T
+//     (every other m-tile). So no streamed element is read twice for one
+//     product, a group holds D / 8 (B3) or D / 16 (B4) accumulator floats a
+//     thread, and the groups hand P and dS over through named barriers
+//     (P ready, dS ready, P free). 32 resident rows a block make
+//     [1, 1024, 4, D] 128 blocks, one wave on 132 SMs; 64 would leave half
+//     of them idle there (the train run's shape).
+//   - The resident rows are loaded once, split and stored as big and small
+//     TF32 planes in wgmma's no-swizzle K-major core-matrix order
+//     (tf32::wgmma_desc), 64 KB a tensor at D = 256; P and dS are split
+//     into B planes the same way each tile, their rows in the order that
+//     the A fragments below read them.
+//   - The streamed tiles arrive by TMA, in chunks of [64 rows x 64 columns
+//     of D] (two 128-byte-swizzled boxes of 32 floats, 16 KB), through a
+//     ring of kStages stages tracked by mbarriers. Every chunk has one
+//     reader group, so a stage's empty barrier waits for four warps, and
+//     that group's first thread loads the chunk kStages ahead into the
+//     stage as soon as it is released: no producer warp, and no group
+//     waits for the other's loads. A tile's chunks: T1 and T2 by turns
+//     over D (X, Y), then B3 T2 and T1 by turns (dV^T, dK^T) or B4 T1
+//     (dQ^T). The threads read the A fragments from a landed chunk by row
+//     (X, Y; columns 2t, 2t + 1 as k = t, t + 4, one 8-byte load) or by
+//     column (the products over the tile; rows 2t, 2t + 1 as k = t, t + 4),
+//     which puts each warp's loads on 32 banks, and split them in
+//     registers (split_trunc), so no streamed tile is stored split.
+//   - Each product of a chunk is 24 wgmmas (8 k-steps x 3) in two commit
+//     groups of 4 k-steps. The A fragments of a group are read while the
+//     group before runs, so the tensor cores have work queued through a
+//     phase. The phase loops are unrolled: ptxas serializes wgmmas (note
+//     C7514) where a loop keeps a group in flight across its back edge. A
+//     product's sum starts from zero and is added to the float32
+//     accumulator once (mma_tf32.cuh: the tensor cores round toward zero),
+//     so a run is 8 k-steps long.
+// Shared memory: kStages x 16 KB of ring, 32 x D x 16 bytes of resident
+// planes and 32 KB of P and dS planes: 230,464 bytes at D = 256 (4
+// stages) and 230,528 at D = 128 (8 stages), one block of 256 threads an
+// SM. avsum_flash_bwd_layout reports this tiling; the wrapper checks it
+// against its own (bwd_layout) before its first launch at a D.
+//
+// Time on an H100 at [1, 1024, 4, D] and [1, 7168, 4, D]: PERF.md
+// (chip_smoke.py's check_b34). At [1, 7168, 4, 256] a tile's chunks come
+// from L2 four times (B3) or three (B4), 25.7 and 19.3 GB a launch: 4.5
+// and 3.7 TB/s at those times, so L2 may bind there (its rate on the card
+// is not measured).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kBlock = 32;  // rows a block owns
-constexpr int kTile = 32;   // rows of the other side per loop step
-constexpr int kThreads = 256;
+constexpr int kBlock = 32;    // resident rows a block owns: wgmma's N
+constexpr int kTile = 64;     // streamed rows per tile: wgmma's M
+constexpr int kChunk = 64;    // columns of D per streamed chunk
+constexpr int kBox = 32;      // floats per TMA box row: 128 bytes
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kChunkBytes = 4 * kTile * kChunk;
+constexpr int kBoxBytes = 4 * kTile * kBox;
+constexpr int kStep = 8 * kBlock;  // floats of a B plane's k-step
 constexpr float kMaskBias = -1e30f;
+// named barriers: 1 + group (one group), and between the groups
+constexpr int kBarPReady = 3, kBarDsReady = 4, kBarPFree = 5;
+
+template <int D>
+struct Layout {
+  static constexpr int kStages = D == 256 ? 4 : 8;
+  static constexpr int kChunks = D / kChunk;
+  static constexpr int kPlane = kBlock * D;  // a resident plane
+  static constexpr int kPds = kBlock * kTile;  // a P or dS plane
+  static constexpr size_t kBytes =
+      1024                                  // to align the ring
+      + (size_t)kStages * kChunkBytes       // TMA ring
+      + 4 * (size_t)(2 * 2 * kPlane)        // 2 tensors x big, small
+      + 4 * (size_t)(2 * 2 * kPds)          // P, dS x big, small
+      + 2 * 8 * (size_t)kStages;            // full and empty mbarriers
+};
+static_assert(Layout<256>::kBytes <= 232448, "B3/B4 fit at D = 256");
+static_assert(Layout<128>::kBytes <= 232448, "B3/B4 fit at D = 128");
+
+struct Params {
+  const float *r1, *r2;   // resident tensors: B3 k, v; B4 q, dout
+  long r1s[3], r2s[3];    // their (b, s, h) strides
+  const float* mask;      // [B, S] or null
+  const float *lse, *delta;  // [B, H, S]
+  float *o1, *o2;         // B3 dk, dv; B4 dq
+  int S, H;
+  float scale;
+};
 
 __device__ __forceinline__ float key_bias(const float* mask, int b, int S,
                                           int key) {
   return (mask == nullptr || mask[(long)b * S + key] > 0.f) ? 0.f : kMaskBias;
 }
 
-// B3: one block owns (b, h, keys [k0, k0 + 32)) and loops over tiles of 32
-// queries, on the tensor cores (3xTF32, mma_tf32.cuh). Per tile:
-//   products 1 and 2, S^T = K Q^T and dP^T = V dO^T over D, [32 keys x 32
-//   queries]: warps 0-3 compute S^T, warps 4-7 dP^T, each one 16-key
-//   m-tile x two 8-query n-tiles. The S^T warps write P^T = exp(S^T *
-//   scale + bias - LSE) to shared memory, the dP^T warps dP^T - delta;
-//   products 3 and 4, dV += P^T dO and dK += dS^T Q over the tile's 32
-//   queries, with dS^T = P^T o (dP^T - delta) formed as the A fragment is
-//   loaded: warp w owns columns [w D / 8, (w + 1) D / 8) of dK and dV for
-//   all 32 keys, in registers (64 a thread at D = 256).
-// Q and dO tiles are double-buffered: the next tile's 16-byte cp.async
-// copies (and its LSE and delta) are issued before this tile's products.
-// The [rows][D] tiles are stored with their 16-byte chunks XOR-swizzled
-// by the row (swizzle()), so that both the row-wise float4 fragment loads
-// of products 1-2 and the column-wise loads of products 3-4 hit 32
-// distinct banks; P^T and dP^T rows are padded to 40 floats for the same.
-template <int D>
-struct DkvSmem {
-  static constexpr int kPitch = kTile + 8;  // P^T, dP^T rows
-  static constexpr size_t kFloats =
-      6 * (size_t)kBlock * D            // K, V, and two stages of Q, dO
-      + 2 * (size_t)kBlock * kPitch     // P^T, dP^T - delta
-      + 4 * (size_t)kTile;              // two stages of LSE, delta
-};
-
-// cp.async rows [s0, s0 + 32) of a strided [S, D] head slice into a
-// swizzled tile (mma_tf32.cuh); rows past S become zeros.
-template <int D>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          long row_stride, int s0, int S) {
-  tf32::copy_rows<D, kBlock, kThreads>(dst, src, row_stride, s0, S);
+// Offset (floats) of element (n, k) of k-step ks of a B plane [ks][32 n][8 k]
+// (tf32::wgmma_desc's core-matrix order).
+__device__ __forceinline__ int plane_at(int ks, int n, int k) {
+  return ks * kStep + (n >> 3) * 64 + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
 }
 
-using tf32::swz;
+using AFrag = uint32_t[4][4];  // four k-steps of A fragments
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 1)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ mask,  // [B, S] or null
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int S,
-                     int H, long qsb, long qss, long qsh, long ksb, long kss,
-                     long ksh, long vsb, long vss, long vsh, long dsb,
-                     long dss, long dsh, float scale) {
-  using Smem = DkvSmem<D>;
-  constexpr int kPitch = Smem::kPitch;
-  constexpr int NT = D / 64;  // 8-column tiles of dK / dV per warp
-  extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);  // [kBlock][D] swizzled
-  float* sv = sk + kBlock * D;                  // [kBlock][D]
-  float* sq = sv + kBlock * D;                  // [2][kTile][D]
-  float* sdo = sq + 2 * kTile * D;              // [2][kTile][D]
-  float* sp = sdo + 2 * kTile * D;              // [kBlock][kPitch]  P^T
-  float* sdp = sp + kBlock * kPitch;            // [kBlock][kPitch]  dP^T - delta
-  float* slse = sdp + kBlock * kPitch;          // [2][kTile]
-  float* sdelta = slse + 2 * kTile;             // [2][kTile]
+// Where this thread reads its A fragments in a landed chunk: byte offsets
+// within a TMA box (rows of 128 bytes whose 16-byte chunks are XOR-
+// swizzled by the row's low three bits; the boxes are 1024-byte aligned).
+struct Gather {
+  // By row: tile row 16w + g, columns 2t and 2t + 1 of 16-byte chunk pair
+  // (2j, 2j + 1) are 8 bytes at row ^ (2j << 4); row + 8 is 1024 bytes
+  // further.
+  uint32_t row;
+  // By column: column 16 (w % 2) + g + 8e of tile row 2t + e' is at
+  // col[2e + e'] in box w / 2; tile row 8kk + 2t + e' is 1024 kk further.
+  uint32_t col[4];
+  uint32_t col_box;  // w / 2 boxes in
 
-  const int k0 = blockIdx.x * kBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const float* qb = q + b * qsb + h * qsh;
-  const float* dob = dout + b * dsb + h * dsh;
-  const float* lseb = lse + ((long)b * H + h) * S;
-  const float* deltab = delta + ((long)b * H + h) * S;
-
-  auto copy_tile = [&](int q0, int buf) {
-    copy_rows<D>(sq + buf * kTile * D, qb, qss, q0, S);
-    copy_rows<D>(sdo + buf * kTile * D, dob, dss, q0, S);
-    if (threadIdx.x < 2 * kTile) {
-      const int i = threadIdx.x % kTile, s = q0 + i;
-      const float* src = threadIdx.x < kTile ? lseb : deltab;
-      float* dst = (threadIdx.x < kTile ? slse : sdelta) + buf * kTile + i;
-      tf32::cp_async4(dst, src + (s < S ? s : 0), s < S);
-    }
-  };
-  copy_rows<D>(sk, k + b * ksb + h * ksh, kss, k0, S);
-  copy_rows<D>(sv, v + b * vsb + h * vsh, vss, k0, S);
-  copy_tile(0, 0);
-  tf32::cp_async_commit();
-
-  // products 1-2: this warp's product, key m-tile and query n-tiles
-  const bool dp_warp = warp >= 4;
-  const int mrow = 16 * ((warp >> 1) & 1) + g;  // key rows mrow, mrow + 8
-  const int ncol = 16 * (warp & 1);             // queries ncol .. ncol + 15
-  const float* a_tile = dp_warp ? sv : sk;
-  float bias[2];
+  __device__ __forceinline__ Gather(int w, int g, int t) {
+    row = (16 * w + g) * 128 + (((t >> 1) ^ g) << 4) + 8 * (t & 1);
+    const int c4 = 4 * (w & 1) + (g >> 2);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = k0 + mrow + 8 * i;
-    bias[i] = key < S ? key_bias(mask, b, S, key) : 0.f;
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2)
+        col[2 * e + e2] = (2 * t + e2) * 128 +
+                          (((c4 + 2 * e) ^ (2 * t + e2)) << 4) + 4 * (g & 3);
+    col_box = (w >> 1) * kBoxBytes;
   }
-  // products 3-4: dK, dV columns [cb, cb + D / 8)
-  const int cb = warp * (D / 8);
-  float acc_k[2][NT][4], acc_v[2][NT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_k[m][n][e] = acc_v[m][n][e] = 0.f;
 
+  // A = the chunk's tile rows 16w + g (+ 8) x its columns 8kk + 2t (k = t)
+  // and 8kk + 2t + 1 (k = t + 4), k-steps kk = 4H .. 4H + 3 (box H); the
+  // resident planes hold D in the same order within each k-step.
+  template <int H>
+  __device__ __forceinline__ void rows(AFrag& big, AFrag& small,
+                                       uint32_t chunk) const {
+    const uint32_t a = chunk + H * kBoxBytes + row;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t at = a ^ ((2 * k) << 4);
+      const float2 lo = tf32::lds2(at), hi = tf32::lds2(at + 1024);
+      tf32::split_trunc(lo.x, big[k][0], small[k][0]);
+      tf32::split_trunc(hi.x, big[k][1], small[k][1]);
+      tf32::split_trunc(lo.y, big[k][2], small[k][2]);
+      tf32::split_trunc(hi.y, big[k][3], small[k][3]);
+    }
+  }
+
+  // A = the chunk transposed: its columns 16w + g (+ 8) x tile rows
+  // 8kk + 2t (k = t) and 8kk + 2t + 1 (k = t + 4), kk = 4H .. 4H + 3.
+  template <int H>
+  __device__ __forceinline__ void cols(AFrag& big, AFrag& small,
+                                       uint32_t chunk) const {
+    const uint32_t box = chunk + col_box + 1024 * 4 * H;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t at = box + 1024 * k;
+      tf32::split_trunc(tf32::lds(at + col[0]), big[k][0], small[k][0]);
+      tf32::split_trunc(tf32::lds(at + col[2]), big[k][1], small[k][1]);
+      tf32::split_trunc(tf32::lds(at + col[1]), big[k][2], small[k][2]);
+      tf32::split_trunc(tf32::lds(at + col[3]), big[k][3], small[k][3]);
+    }
+  }
+};
+
+// Products in flight. A product is d = A B over the 8 k-steps of a chunk
+// in 3xTF32: 24 wgmmas m64n32k8 in two commit groups (halves of 4
+// k-steps), A gathered from the landed chunk into the half's register
+// set, B from a big and a small plane (descriptors of the product's first
+// k-step), summed from zero into partial d[P], P alternating within a
+// phase. The next product's first half is gathered while this one's
+// second half runs, so the tensor cores always have a group queued.
+struct Pipe {
+  AFrag big[2], small[2];
+  float d[2][16];
+};
+
+template <int H>
+__device__ __forceinline__ void issue_half(float (&d)[16], const AFrag& big,
+                                           const AFrag& small, uint64_t b_big,
+                                           uint64_t b_small) {
+  constexpr uint64_t kDescStep = 4 * kStep >> 4;  // a k-step of a plane
+  tf32::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    tf32::wgmma(d, small[k], b_big + (4 * H + k) * kDescStep);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    tf32::wgmma(d, big[k], b_small + (4 * H + k) * kDescStep);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    tf32::wgmma(d, big[k], b_big + (4 * H + k) * kDescStep);
+  tf32::wgmma_commit();
+}
+
+__device__ __forceinline__ void add16(float (&acc)[16], const float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] += d[i];
+}
+
+// A product of a phase, into partial P (its index in the phase mod 2),
+// A read from `chunk` by row or column. Once its A fragments are read, the
+// calling warp releases the chunk's stage (`release`); the previous
+// product's partial sum, complete once this one's first half is queued,
+// is added to `prev` unless this is the phase's first product.
+template <int P, bool kByRow, class Release>
+__device__ __forceinline__ void issue(Pipe& q, bool first, const Gather& ga,
+                                      uint32_t chunk, uint64_t b_big,
+                                      uint64_t b_small, Release release,
+                                      float (&prev)[16]) {
+  float(&d)[16] = q.d[P];
+  float(&d_prev)[16] = q.d[P ^ 1];
+  tf32::wgmma_wait<1>();  // the previous product's first half: set 0 free
+  tf32::fence_operand(q.big[0]);
+  tf32::fence_operand(q.small[0]);
+  if (kByRow) ga.rows<0>(q.big[0], q.small[0], chunk);
+  else ga.cols<0>(q.big[0], q.small[0], chunk);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) d[i] = 0.f;
+  tf32::fence_operand(d);
+  issue_half<0>(d, q.big[0], q.small[0], b_big, b_small);
+  tf32::wgmma_wait<1>();  // its second half: set 1 free, d_prev complete
+  tf32::fence_operand(d_prev);
+  tf32::fence_operand(q.big[1]);
+  tf32::fence_operand(q.small[1]);
+  if (!first) add16(prev, d_prev);
+  if (kByRow) ga.rows<1>(q.big[1], q.small[1], chunk);
+  else ga.cols<1>(q.big[1], q.small[1], chunk);
+  release();
+  issue_half<1>(d, q.big[1], q.small[1], b_big, b_small);
+}
+
+// Wait for every product of the phase; the last one's sum (partial P) is
+// added to `dest`.
+template <int P>
+__device__ __forceinline__ void drain(Pipe& q, float (&dest)[16]) {
+  tf32::wgmma_wait<0>();
+  float(&d)[16] = q.d[P];
+  tf32::fence_operand(d);
+  tf32::fence_operand(q.big[0]);
+  tf32::fence_operand(q.small[0]);
+  tf32::fence_operand(q.big[1]);
+  tf32::fence_operand(q.small[1]);
+  add16(dest, d);
+}
+
+// Named barriers: all 128 threads of one group, or 128 that arrive and
+// 128 that wait between the two groups.
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + grp) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// The planes' offset (floats) of this thread's accumulator element
+// v[4i + e] (tile row 16w + g + 8 (e / 2), resident column 8i + 2t +
+// e % 2) as a B operand of the products over the tile: k-step = row / 8,
+// k = the row's place in Gather::cols' order.
+__device__ __forceinline__ int pds_at(int i, int e, int w, int g, int t) {
+  return plane_at(2 * w + (e >> 1), 8 * i + 2 * t + (e & 1),
+                  (g >> 1) | ((g & 1) << 2));
+}
+
+// v split into the B planes at shared addresses big, small.
+__device__ __forceinline__ void store_planes(uint32_t big, uint32_t small,
+                                             const float (&v)[16], int w,
+                                             int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t at = 4 * pds_at(i, e, w, g, t);
+      uint32_t hi, lo;
+      tf32::split(v[4 * i + e], hi, lo);
+      tf32::sts(big + at, hi);
+      tf32::sts(small + at, lo);
+    }
+  tf32::fence_proxy_async();
+}
+
+// The body of both kernels (kDkv: B3, else B4). T1, T2: tensor maps of the
+// streamed tensors (B3 q, dout; B4 k, v). Group 0 computes X = T1 R1^T
+// and P, group 1 Y = T2 R2^T and dS; the products over the tile are
+// shared out by 64-row m-tile of D.
+template <int D, bool kDkv>
+__device__ __forceinline__ void bwd_body(const CUtensorMap& t1,
+                                         const CUtensorMap& t2,
+                                         const Params& p, const void* smem) {
+  using L = Layout<D>;
+  constexpr int NC = L::kChunks;
+  constexpr int kPerTile = (kDkv ? 4 : 3) * NC;  // chunks a tile
+  constexpr uint64_t kChunkDesc = 4 * 8 * kStep >> 4;  // 8 k-steps
+  // Shared addresses: the ring (1024-aligned for the 128-byte swizzle),
+  // the resident planes [R1, R2][big, small], the P and dS planes [big,
+  // small], the mbarriers full[stage], empty[stage].
+  const uint32_t ring = (tf32::smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t res = ring + L::kStages * kChunkBytes;
+  const uint32_t p_big = res + 4 * 4 * L::kPlane, p_small = p_big + 4 * L::kPds;
+  const uint32_t ds_big = p_small + 4 * L::kPds, ds_small = ds_big + 4 * L::kPds;
+  const uint32_t full = ds_small + 4 * L::kPds;
+  const uint32_t empty = full + 8 * L::kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
+  const int S = p.S;
   const int n_tiles = (S + kTile - 1) / kTile;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1, q0 = it * kTile;
-    tf32::cp_async_wait<0>();
-    __syncthreads();  // tile it landed; every warp is done with tile it - 1
-    if (it + 1 < n_tiles) copy_tile(q0 + kTile, buf ^ 1);
-    tf32::cp_async_commit();
-    const float* tq = sq + buf * kTile * D;
-    const float* tdo = sdo + buf * kTile * D;
+  const int n_chunks = n_tiles * kPerTile;
 
-    // products 1-2, over all of D
-    {
-      float acc[2][4] = {};
-      tf32::rows_dot<D, D, 4>(acc, a_tile, mrow, dp_warp ? tdo : tq, ncol, 0);
-      // c0..c3 of tile n: (key mrow, query 2t), (mrow, 2t + 1), (mrow + 8, ..)
+  // Chunk m of the stream into its stage. A tile's chunks: T1 c, T2 c for
+  // c < NC (X, Y); then B3 T2 c, T1 c (dV^T, dK^T) or B4 T1 c (dQ^T).
+  auto load = [&](int m) {
+    const int s = m % L::kStages, it = m / kPerTile, pos = m % kPerTile;
+    const int c = pos < 2 * NC ? pos / 2 : kDkv ? (pos - 2 * NC) / 2 : pos - 2 * NC;
+    const bool second = pos < 2 * NC ? pos & 1 : kDkv && !(pos & 1);
+    const CUtensorMap* map = second ? &t2 : &t1;
+    const uint32_t dst = ring + s * kChunkBytes;
+    tf32::mbar_expect_tx(full + 8 * s, kChunkBytes);
+    tf32::tma_load_4d(dst, map, full + 8 * s, c * kChunk, h, it * kTile, b);
+    tf32::tma_load_4d(dst + kBoxBytes, map, full + 8 * s, c * kChunk + kBox,
+                      h, it * kTile, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      tf32::mbar_init(full + 8 * s, 1);
+      tf32::mbar_init(empty + 8 * s, 4);  // the warps of the group reading it
+    }
+    tf32::mbar_fence_init();
+    for (int m = 0; m < L::kStages && m < n_chunks; ++m) load(m);
+  }
+  __syncthreads();
+
+  // The group index through a shuffle, so that the compiler knows it is
+  // the same across the warp and keeps the planes' descriptors uniform.
+  const int grp = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+
+  // Group 0 splits R1 into its B planes, group 1 R2: each its own.
+  {
+    const float* src = grp ? p.r2 : p.r1;
+    const long sb = grp ? p.r2s[0] : p.r1s[0], ss = grp ? p.r2s[1] : p.r1s[1],
+               sh = grp ? p.r2s[2] : p.r1s[2];
+    const uint32_t big = res + 4 * grp * 2 * L::kPlane;
+    const uint32_t small = big + 4 * L::kPlane;
+    for (int i = tid & 127; i < kBlock * D / 4; i += 128) {
+      const int n = i / (D / 4), d = 4 * (i % (D / 4)), s = r0 + n;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (s < S)
+        x = *reinterpret_cast<const float4*>(src + b * sb + s * ss + h * sh + d);
+      // column d + i of D is k = (i >> 1) + 4 (i & 1) of k-step d / 8 when
+      // d % 8 == 0 (Gather::rows' order), k = that + 2 when d % 8 == 4
+      const float v[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int qi = ncol + 8 * n + 2 * t;
-        float out[4];
+      for (int j = 0; j < 4; ++j) {
+        uint32_t hi, lo;
+        tf32::split(v[j], hi, lo);
+        const int k = ((d & 4) >> 1) + (j >> 1) + 4 * (j & 1);
+        const uint32_t at = 4 * plane_at(d >> 3, n, k);
+        tf32::sts(big + at, hi);
+        tf32::sts(small + at, lo);
+      }
+    }
+  }
+  tf32::fence_proxy_async();
+  group_sync(grp);
+  const uint32_t mine = res + 4 * grp * 2 * L::kPlane;
+  const uint64_t r_big = tf32::wgmma_desc_at(mine);
+  const uint64_t r_small = tf32::wgmma_desc_at(mine + 4 * L::kPlane);
+  // the B planes of the products over the tile: P (0) or dS (1)
+  auto pd_big = [&](int a) {
+    return tf32::wgmma_desc_at(a ? ds_big : p_big);
+  };
+  auto pd_small = [&](int a) {
+    return tf32::wgmma_desc_at(a ? ds_small : p_small);
+  };
+  const Gather ga(w, g, t);
+
+  // This thread's resident columns 8i + 2t + j: B3 the key bias, B4 the
+  // query's LSE (group 0) or delta (group 1).
+  const long bh = (long)b * p.H + h;
+  float col[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int s = r0 + 8 * i + 2 * t + j;
+      col[i][j] = s >= S ? 0.f
+                  : kDkv ? key_bias(p.mask, b, S, s)
+                         : (grp ? p.delta : p.lse)[bh * S + s];
+    }
+
+  // The products over the tile this group takes, by m-tile c of D: B3
+  // every c, dV^T (T2 c) where c + grp is even and dK^T (T1 c) where it is
+  // odd, in acc[c]; B4 dQ^T (T1 c) where c % 2 == grp, in acc[c / 2].
+  constexpr int kAcc = kDkv ? NC : NC / 2;
+  float acc[kAcc][16];
+#pragma unroll
+  for (int c = 0; c < kAcc; ++c)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[c][i] = 0.f;
+
+  // Chunk n of the stream: wait for it to land; -> its shared address.
+  auto take = [&](int n) {
+    const int s = n % L::kStages;
+    tf32::mbar_wait(full + 8 * s, (n / L::kStages) & 1);
+    return ring + s * kChunkBytes;
+  };
+  // This warp is done reading chunk n; the group's first thread then loads
+  // chunk n + kStages into the stage once the group's four warps are done.
+  auto release = [&](int n) {
+    return [&, n]() {
+      const int s = n % L::kStages;
+      tf32::fence_proxy_async();  // these reads before the stage's next TMA
+      __syncwarp();
+      if (lane == 0) tf32::mbar_arrive(empty + 8 * s);
+      if ((tid & 127) == 0 && n + L::kStages < n_chunks) {
+        tf32::mbar_wait(empty + 8 * s, (n / L::kStages) & 1);
+        load(n + L::kStages);
+      }
+      __syncwarp();
+    };
+  };
+  Pipe q;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int n0 = it * kPerTile;  // the tile's first chunk
+    // This thread's tile rows 16w + g + 8e: whether < S, and B3 the
+    // query's LSE (group 0) or delta (group 1), B4 the key bias.
+    float row[2];
+    bool row_in[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int s = it * kTile + 16 * w + g + 8 * e;
+      row_in[e] = s < S;
+      row[e] = !row_in[e] ? 0.f
+               : kDkv ? (grp ? p.delta : p.lse)[bh * S + s]
+                      : key_bias(p.mask, b, S, s);
+    }
+
+    // X = T1 R1^T (group 0) or Y = T2 R2^T (group 1) over D: chunks
+    // n0 + 2c + grp
+    float xy[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) xy[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; c += 2) {
+      const int n = n0 + 2 * c + grp;
+      issue<0, true>(q, c == 0, ga, take(n), r_big + c * kChunkDesc,
+                     r_small + c * kChunkDesc, release(n), xy);
+      issue<1, true>(q, false, ga, take(n + 2), r_big + (c + 1) * kChunkDesc,
+                     r_small + (c + 1) * kChunkDesc, release(n + 2), xy);
+    }
+    drain<1>(q, xy);
+
+    if (grp == 0) {
+      // P = exp(S * scale + key bias - LSE), 0 on rows past S
+      float pv[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qq = qi + (e & 1);
-          if (dp_warp) {
-            out[e] = acc[n][e] - sdelta[buf * kTile + qq];
-          } else {
-            out[e] = q0 + qq < S
-                ? expf(acc[n][e] * scale + bias[e >> 1] - slse[buf * kTile + qq])
-                : 0.f;
-          }
+          const int r = e >> 1, j = e & 1;
+          const float bias = kDkv ? col[i][j] : row[r];
+          const float lse = kDkv ? row[r] : col[i][j];
+          pv[4 * i + e] =
+              row_in[r] ? expf(xy[4 * i + e] * p.scale + bias - lse) : 0.f;
         }
-        float* dst = dp_warp ? sdp : sp;
-        *reinterpret_cast<float2*>(dst + mrow * kPitch + qi) = make_float2(out[0], out[1]);
-        *reinterpret_cast<float2*>(dst + (mrow + 8) * kPitch + qi) = make_float2(out[2], out[3]);
-      }
+      if (it > 0) bar_wait(kBarPFree);  // group 1 is done with the last P
+      store_planes(p_big, p_small, pv, w, g, t);
+      bar_arrive(kBarPReady);
+    } else {
+      // dS = P o (dP - delta), P read back from its planes (big + small)
+      bar_wait(kBarPReady);
+      float ds[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t at = 4 * pds_at(i, e, w, g, t);
+          const float pv = tf32::lds(p_big + at) + tf32::lds(p_small + at);
+          const float delta = kDkv ? row[e >> 1] : col[i][e & 1];
+          ds[4 * i + e] = pv * (xy[4 * i + e] - delta);
+        }
+      if (!kDkv && it + 1 < n_tiles) bar_arrive(kBarPFree);
+      // group 0's dK^T / dQ^T products of the last tile are done: it
+      // wrote this tile's P after them
+      store_planes(ds_big, ds_small, ds, w, g, t);
+      bar_arrive(kBarDsReady);
     }
-    __syncthreads();  // P^T and dP^T - delta are in shared memory
 
-    // products 3-4. K-step j covers queries 8j .. 8j + 7: k = t is query
-    // 8j + 2t and k = t + 4 is query 8j + 2t + 1, in A (a float2 of the
-    // P^T row) and in B (rows 8j + 2t, 8j + 2t + 1 of dO and Q) alike.
+    // The products over the tile, this group's m-tiles
+    if (kDkv) {
+      // chunk n0 + 2NC + 2c is T2 c (dV^T, with P), + 1 is T1 c (dK^T,
+      // with dS)
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      const int qi = 8 * j + 2 * t;
-      tf32::FragA fp[2], fs[2];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int r = 16 * m + g;
-        const float2 p_lo = *reinterpret_cast<const float2*>(sp + r * kPitch + qi);
-        const float2 p_hi = *reinterpret_cast<const float2*>(sp + (r + 8) * kPitch + qi);
-        const float2 d_lo = *reinterpret_cast<const float2*>(sdp + r * kPitch + qi);
-        const float2 d_hi = *reinterpret_cast<const float2*>(sdp + (r + 8) * kPitch + qi);
-        fp[m].set(0, p_lo.x); fp[m].set(1, p_hi.x);
-        fp[m].set(2, p_lo.y); fp[m].set(3, p_hi.y);
-        fs[m].set(0, p_lo.x * d_lo.x); fs[m].set(1, p_hi.x * d_hi.x);
-        fs[m].set(2, p_lo.y * d_lo.y); fs[m].set(3, p_hi.y * d_hi.y);
+      for (int c = 0; c < NC; c += 2) {
+        const int n = n0 + 2 * NC + 2 * c;
+        const int a = (c + grp) & 1;  // product c: 0 dV^T, 1 dK^T
+        issue<0, false>(q, c == 0, ga, take(n + a), pd_big(a), pd_small(a),
+                        release(n + a), acc[c > 0 ? c - 1 : 0]);
+        if (c == 0 && grp == 0) bar_wait(kBarDsReady);
+        issue<1, false>(q, false, ga, take(n + 3 - a), pd_big(a ^ 1),
+                        pd_small(a ^ 1), release(n + 3 - a), acc[c]);
       }
-      tf32::FragB fo[NT], fq[NT];
+      drain<1>(q, acc[NC - 1]);
+      if (grp == 1 && it + 1 < n_tiles) bar_arrive(kBarPFree);
+    } else {
+      // chunk n0 + 2NC + c is T1 c; group c % 2 takes it
+      if (grp == 0) bar_wait(kBarDsReady);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int c = cb + 8 * n + g;
-        fo[n].set(0, tdo[swz<D>(qi, c)]);
-        fo[n].set(1, tdo[swz<D>(qi + 1, c)]);
-        fq[n].set(0, tq[swz<D>(qi, c)]);
-        fq[n].set(1, tq[swz<D>(qi + 1, c)]);
+      for (int j = 0; j < NC / 2; j += 2) {
+        const int n = n0 + 2 * NC + 2 * j + grp;
+        issue<0, false>(q, j == 0, ga, take(n), pd_big(1), pd_small(1),
+                        release(n), acc[j > 0 ? j - 1 : 0]);
+        if (j + 1 < NC / 2)
+          issue<1, false>(q, false, ga, take(n + 2), pd_big(1), pd_small(1),
+                          release(n + 2), acc[j]);
       }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        tf32::mma3_row<NT>(acc_v[m], fp[m], fo);
-        tf32::mma3_row<NT>(acc_k[m], fs[m], fq);
-      }
-    }
-  }
-
-  // c0..c3 of (m, n): (key 16m + g, column cb + 8n + 2t), (.., + 1),
-  // (key 16m + g + 8, ..)
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int s = k0 + 16 * m + g + 8 * i;
-      if (s >= S) continue;
-      const long row = (((long)b * S + s) * H + h) * D + cb + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        *reinterpret_cast<float2*>(dk + row + 8 * n) =
-            make_float2(acc_k[m][n][2 * i] * scale, acc_k[m][n][2 * i + 1] * scale);
-        *reinterpret_cast<float2*>(dv + row + 8 * n) =
-            make_float2(acc_v[m][n][2 * i], acc_v[m][n][2 * i + 1]);
-      }
-    }
-}
-
-// B4, the mirror of B3: one block owns (b, h, queries [q0, q0 + 32)) and
-// loops over tiles of 32 keys, on the tensor cores (3xTF32). Per tile:
-//   products 1 and 2, S = Q K^T and dP = dO V^T over D, [32 queries x 32
-//   keys]: warps 0-3 compute S, warps 4-7 dP, each one 16-query m-tile x
-//   two 8-key n-tiles, with the same fragment loads as B3's. The S warps
-//   write P = exp(S * scale + bias - LSE) to shared memory (0 for keys
-//   past S), the dP warps dP - delta;
-//   product 3, dQ += dS K over the tile's 32 keys, with dS = P o (dP -
-//   delta) formed as the A fragment is loaded: warp w owns columns
-//   [w D / 8, (w + 1) D / 8) of dQ for all 32 queries, in registers (32 a
-//   thread at D = 256). Within each group of NT = D / 64 n-tiles a warp
-//   owns, n-tile i's column g is column NT g + i, so the B fragments of all
-//   NT n-tiles at one key are NT consecutive floats of a K row, one vector
-//   load; the swizzle keeps those loads on 32 banks.
-// Q and dO (and the rows' LSE and delta) stay resident; K and V tiles,
-// and the tile's key mask, are double-buffered: the next tile's 16-byte
-// cp.async copies are issued before this tile's products.
-template <int D>
-struct DqSmem {
-  static constexpr int kPitch = kTile + 8;  // P, dP rows
-  static constexpr size_t kFloats =
-      6 * (size_t)kBlock * D            // Q, dO, and two stages of K, V
-      + 2 * (size_t)kBlock * kPitch     // P, dP - delta
-      + 2 * (size_t)kTile;              // two stages of the key mask
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ mask,  // [B, S] or null
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int S, int H, long qsb, long qss, long qsh, long ksb,
-                    long kss, long ksh, long vsb, long vss, long vsh,
-                    long dsb, long dss, long dsh, float scale) {
-  using Smem = DqSmem<D>;
-  constexpr int kPitch = Smem::kPitch;
-  constexpr int NT = D / 64;  // 8-column n-tiles of dQ per warp
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // [kBlock][D] swizzled
-  float* sdo = sq + kBlock * D;                 // [kBlock][D]
-  float* sk = sdo + kBlock * D;                 // [2][kTile][D]
-  float* sv = sk + 2 * kTile * D;               // [2][kTile][D]
-  float* sp = sv + 2 * kTile * D;               // [kBlock][kPitch]  P
-  float* sdp = sp + kBlock * kPitch;            // [kBlock][kPitch]  dP - delta
-  float* smask = sdp + kBlock * kPitch;         // [2][kTile]  key mask > 0
-
-  const int q0 = blockIdx.x * kBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const float* kb = k + b * ksb + h * ksh;
-  const float* vb = v + b * vsb + h * vsh;
-
-  auto copy_tile = [&](int k0, int buf) {
-    copy_rows<D>(sk + buf * kTile * D, kb, kss, k0, S);
-    copy_rows<D>(sv + buf * kTile * D, vb, vss, k0, S);
-    if (threadIdx.x < kTile) {
-      const int s = k0 + threadIdx.x;
-      float* dst = smask + buf * kTile + threadIdx.x;
-      if (mask == nullptr) {
-        *dst = 1.f;
+      if (NC / 2 == 1) {
+        drain<0>(q, acc[0]);
       } else {
-        tf32::cp_async4(dst, mask + (long)b * S + (s < S ? s : 0), s < S);
-      }
-    }
-  };
-  copy_rows<D>(sq, q + b * qsb + h * qsh, qss, q0, S);
-  copy_rows<D>(sdo, dout + b * dsb + h * dsh, dss, q0, S);
-  copy_tile(0, 0);
-  tf32::cp_async_commit();
-
-  // products 1-2: this warp's product, query m-tile and key n-tiles
-  const bool dp_warp = warp >= 4;
-  const int mrow = 16 * ((warp >> 1) & 1) + g;  // query rows mrow, mrow + 8
-  const int ncol = 16 * (warp & 1);             // keys ncol .. ncol + 15
-  const float* a_tile = dp_warp ? sdo : sq;
-  float row_stat[2];  // LSE (S warps) or delta (dP warps) of rows mrow, + 8
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = q0 + mrow + 8 * i;
-    row_stat[i] = s < S ? (dp_warp ? delta : lse)[((long)b * H + h) * S + s]
-                        : 0.f;
-  }
-  // product 3: dQ columns [cb, cb + D / 8)
-  const int cb = warp * (D / 8);
-  float acc_q[2][NT][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_q[m][n][e] = 0.f;
-
-  const int n_tiles = (S + kTile - 1) / kTile;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1, k0 = it * kTile;
-    tf32::cp_async_wait<0>();
-    __syncthreads();  // tile it landed; every warp is done with tile it - 1
-    if (it + 1 < n_tiles) copy_tile(k0 + kTile, buf ^ 1);
-    tf32::cp_async_commit();
-    const float* tk = sk + buf * kTile * D;
-    const float* tv = sv + buf * kTile * D;
-    const float* tmask = smask + buf * kTile;
-
-    // products 1-2, over all of D
-    {
-      float acc[2][4] = {};
-      tf32::rows_dot<D, D, 4>(acc, a_tile, mrow, dp_warp ? tv : tk, ncol, 0);
-      // c0..c3 of tile n: (query mrow, key 2t), (mrow, 2t + 1), (mrow + 8, ..)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int kj = ncol + 8 * n + 2 * t;
-        float out[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kk = kj + (e & 1);
-          if (dp_warp) {
-            out[e] = acc[n][e] - row_stat[e >> 1];
-          } else {
-            const float bias = tmask[kk] > 0.f ? 0.f : kMaskBias;
-            out[e] = k0 + kk < S
-                ? expf(acc[n][e] * scale + bias - row_stat[e >> 1])
-                : 0.f;
-          }
-        }
-        float* dst = dp_warp ? sdp : sp;
-        *reinterpret_cast<float2*>(dst + mrow * kPitch + kj) = make_float2(out[0], out[1]);
-        *reinterpret_cast<float2*>(dst + (mrow + 8) * kPitch + kj) = make_float2(out[2], out[3]);
-      }
-    }
-    __syncthreads();  // P and dP - delta are in shared memory
-
-    // product 3. K-step j covers keys 8j .. 8j + 7: k = t is key 8j + 2t
-    // and k = t + 4 is key 8j + 2t + 1, in A (a float2 of the P and dP
-    // rows) and in B (rows 8j + 2t, 8j + 2t + 1 of K) alike.
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      const int kj = 8 * j + 2 * t;
-      tf32::FragB fk[NT];
-      float lo[NT], hi[NT];
-      tf32::load_vec<NT>(lo, tk + swz<D>(kj, cb + NT * g));
-      tf32::load_vec<NT>(hi, tk + swz<D>(kj + 1, cb + NT * g));
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        fk[n].set(0, lo[n]);
-        fk[n].set(1, hi[n]);
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int r = 16 * m + g;
-        const float2 p_lo = *reinterpret_cast<const float2*>(sp + r * kPitch + kj);
-        const float2 p_hi = *reinterpret_cast<const float2*>(sp + (r + 8) * kPitch + kj);
-        const float2 d_lo = *reinterpret_cast<const float2*>(sdp + r * kPitch + kj);
-        const float2 d_hi = *reinterpret_cast<const float2*>(sdp + (r + 8) * kPitch + kj);
-        tf32::FragA fs;
-        fs.set(0, p_lo.x * d_lo.x); fs.set(1, p_hi.x * d_hi.x);
-        fs.set(2, p_lo.y * d_lo.y); fs.set(3, p_hi.y * d_hi.y);
-        tf32::mma3_row<NT>(acc_q[m], fs, fk);
+        drain<1>(q, acc[NC / 2 - 1]);
       }
     }
   }
 
-  // c0..c3 of (m, n): (query 16m + g, column cb + NT (2t) + n), (.., cb +
-  // NT (2t + 1) + n), (query 16m + g + 8, ..): NT consecutive columns each
+  // Accumulator row 16w + g + 8 (e / 2) of m-tile c is column 64c + 16w +
+  // g + 8 (e / 2) of D; column 8i + 2t + e % 2 is resident row r0 + that.
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int j = 0; j < kAcc; ++j) {
+    const int c = kDkv ? j : 2 * j + grp;
+    const bool dk = !kDkv || ((c + grp) & 1);  // dK^T or dQ^T, else dV^T
+    float* out = dk ? p.o1 : p.o2;
+    const float f = dk ? p.scale : 1.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int s = q0 + 16 * m + g + 8 * i;
-      if (s >= S) continue;
-      float* row = dq + (((long)b * S + s) * H + h) * D + cb + 2 * NT * t;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float x[NT];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) x[n] = acc_q[m][n][2 * i + e] * scale;
-        tf32::store_vec<NT>(row + NT * e, x);
+      for (int e = 0; e < 4; ++e) {
+        const int s = r0 + 8 * i + 2 * t + (e & 1);
+        if (s < S)
+          out[(((long)b * S + s) * p.H + h) * D + 64 * c + 16 * w + g +
+              8 * (e >> 1)] = acc[j][4 * i + e] * f;
       }
-    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo, const Params p) {
+  extern __shared__ float4 smem4[];
+  bwd_body<D, true>(tq, tdo, p, smem4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Params p) {
+  extern __shared__ float4 smem4[];
+  bwd_body<D, false>(tk, tv, p, smem4);
+}
+
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime
+// so that the library need not link libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The tensor map of a [B, S, H, D] float32 view with element strides
+// st = {b, s, h} and a unit stride on D: boxes of [kTile rows][kBox
+// floats] at coordinates (d, h, s, b), 128-byte swizzle, zeros outside.
+// The stride of an axis of extent 1 is never followed, so it is given the
+// packed value. Returns 0 or a CUDA error code.
+int make_map(CUtensorMap* map, const float* base, int B, int S, int H, int D,
+             const long* st) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const long sh = H > 1 ? st[2] : D;
+  const long ss = S > 1 ? st[1] : (long)H * sh;
+  const long sb = B > 1 ? st[0] : (long)S * ss;
+  const cuuint64_t strides[3] = {(cuuint64_t)(4 * sh), (cuuint64_t)(4 * ss),
+                                 (cuuint64_t)(4 * sb)};
+  const cuuint32_t box[4] = {kBox, 1, kTile, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 struct Args {
@@ -461,33 +674,47 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
-int launch_dkv(const Args& a, float* dk, float* dv) {
-  const size_t smem = DkvSmem<D>::kFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + kBlock - 1) / kBlock, a.H, a.B);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.mask, a.lse, a.delta, dk, dv, a.S, a.H,
-      a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1],
-      a.vs[2], a.ds[0], a.ds[1], a.ds[2], 1.f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+Params make_params(const Args& a, const float* r1, const long* r1s,
+                   const float* r2, const long* r2s, float* o1, float* o2,
+                   int D) {
+  Params p;
+  p.r1 = r1;
+  p.r2 = r2;
+  for (int i = 0; i < 3; ++i) {
+    p.r1s[i] = r1s[i];
+    p.r2s[i] = r2s[i];
+  }
+  p.mask = a.mask;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.o1 = o1;
+  p.o2 = o2;
+  p.S = a.S;
+  p.H = a.H;
+  p.scale = 1.f / sqrtf((float)D);
+  return p;
 }
 
-template <int D>
-int launch_dq(const Args& a, float* dq) {
-  const size_t smem = DqSmem<D>::kFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+// B3 (kDkv) or B4 at D: two tensor maps of the streamed tensors, then one
+// launch of (ceil(S / kBlock), H, B) blocks.
+template <int D, bool kDkv>
+int launch(const Args& a, float* o1, float* o2) {
+  CUtensorMap t1, t2;
+  int err = kDkv ? make_map(&t1, a.q, a.B, a.S, a.H, D, a.qs)
+                 : make_map(&t1, a.k, a.B, a.S, a.H, D, a.ks);
+  if (err == 0)
+    err = kDkv ? make_map(&t2, a.dout, a.B, a.S, a.H, D, a.ds)
+               : make_map(&t2, a.v, a.B, a.S, a.H, D, a.vs);
+  if (err) return err;
+  const Params p = kDkv ? make_params(a, a.k, a.ks, a.v, a.vs, o1, o2, D)
+                        : make_params(a, a.q, a.qs, a.dout, a.ds, o1, o2, D);
+  auto kernel = kDkv ? flash_bwd_dkv_kernel<D> : flash_bwd_dq_kernel<D>;
+  const size_t smem = Layout<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.S + kBlock - 1) / kBlock, a.H, a.B);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.mask, a.lse, a.delta, dq, a.S, a.H, a.qs[0],
-      a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2],
-      a.ds[0], a.ds[1], a.ds[2], 1.f / sqrtf((float)D));
+  kernel<<<grid, kThreads, smem, a.stream>>>(t1, t2, p);
   return (int)cudaGetLastError();
 }
 
@@ -501,13 +728,39 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
               (cudaStream_t)stream};
 }
 
+template <int D>
+void layout(long* out) {
+  constexpr long kSmSmem = 233472;  // an SM's shared memory, 228 KB
+  const long v[] = {kBlock, kTile, Layout<D>::kStages, (long)Layout<D>::kBytes,
+                    kSmSmem / ((long)Layout<D>::kBytes + 1024)};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+}
+
 }  // namespace
 
+// The tiling at head width d: out[0..4] = resident rows a block owns,
+// streamed rows per tile, TMA stages, dynamic shared memory in bytes and
+// blocks an SM holds by shared memory (each block also reserves 1 KB).
+// Returns cudaErrorInvalidValue for a d other than 128 or 256.
+extern "C" int avsum_flash_bwd_layout(int d, long* out) {
+  if (d == 128) {
+    layout<128>(out);
+    return 0;
+  }
+  if (d == 256) {
+    layout<256>(out);
+    return 0;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // q, k, v, dout: float32 [B, S, H, D] with element strides {b, s, h} in
-// *_strides and unit stride on D; mask: float32 [B, S] contiguous (> 0 =
-// valid key) or null; lse, delta: float32 [B, H, S] contiguous; dk, dv
-// (and dq): [B, S, H, D] contiguous. D must be 128 or 256 (returns
-// cudaErrorInvalidValue otherwise). Each returns cudaGetLastError().
+// *_strides (multiples of 4) and unit stride on D, 16-byte aligned; mask:
+// float32 [B, S] contiguous (> 0 = valid key) or null; lse, delta: float32
+// [B, H, S] contiguous; dk, dv (and dq): [B, S, H, D] contiguous. D must be
+// 128 or 256 (returns cudaErrorInvalidValue otherwise). Each returns 0 or
+// a CUDA error code: that of a tensor map the driver refused, of the
+// shared-memory opt-in, or cudaGetLastError() after the launch.
 extern "C" int avsum_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    const void* dout, const void* mask,
                                    const void* lse, const void* delta,
@@ -518,8 +771,8 @@ extern "C" int avsum_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    const long* do_strides, void* stream) {
   const Args a = make_args(q, k, v, dout, mask, lse, delta, B, S, H,
                            q_strides, k_strides, v_strides, do_strides, stream);
-  if (D == 128) return launch_dkv<128>(a, (float*)dk, (float*)dv);
-  if (D == 256) return launch_dkv<256>(a, (float*)dk, (float*)dv);
+  if (D == 128) return launch<128, true>(a, (float*)dk, (float*)dv);
+  if (D == 256) return launch<256, true>(a, (float*)dk, (float*)dv);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -532,7 +785,7 @@ extern "C" int avsum_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const long* do_strides, void* stream) {
   const Args a = make_args(q, k, v, dout, mask, lse, delta, B, S, H,
                            q_strides, k_strides, v_strides, do_strides, stream);
-  if (D == 128) return launch_dq<128>(a, (float*)dq);
-  if (D == 256) return launch_dq<256>(a, (float*)dq);
+  if (D == 128) return launch<128, false>(a, (float*)dq, nullptr);
+  if (D == 256) return launch<256, false>(a, (float*)dq, nullptr);
   return (int)cudaErrorInvalidValue;
 }

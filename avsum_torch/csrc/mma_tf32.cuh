@@ -1,7 +1,8 @@
 // Tensor-core helpers shared by the port's kernels: float32 products on
 // Hopper's TF32 tensor cores at float32-level accuracy, by mma.sync (one
-// warp) or wgmma (a warpgroup of four), and the cp.async copies that feed
-// them.
+// warp; K2) or wgmma (a warpgroup of four; K1, B3, B4), the cp.async
+// copies that feed K1 and K2, and the mbarriers and TMA loads that feed
+// B3 and B4.
 //
 // 3xTF32. TF32 keeps 10 of float32's 23 mantissa bits, about three
 // decimal digits. Each operand x is split as x = big + small, big =
@@ -44,6 +45,18 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
                                       uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// x -> (big, small) in two instructions, for operands read once: big =
+// x truncated to TF32, small = x - big exactly, which the MMA reads
+// truncated too. Each part loses less than 2^-10 of itself, so a product
+// keeps ~2^-20 of |a b| against split()'s ~2^-22; B3 and B4 take it for
+// the A fragments they read from every streamed tile
+// (tests/test_torch_flash_split.py holds it to their tolerance).
+__device__ __forceinline__ void split_trunc(float x, uint32_t& big,
+                                            uint32_t& small) {
+  big = __float_as_uint(x) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 // An A fragment (4 values) or a B fragment (2 values), split.
@@ -108,13 +121,6 @@ __device__ __forceinline__ void mma3(float (*c)[4], const FragA* a,
     for (int e = 0; e < 4; ++e) c[n][e] += d[n][e];
 }
 
-// One k-step: c[n] += a * b[n].
-template <int N>
-__device__ __forceinline__ void mma3_row(float (*c)[4], const FragA& a,
-                                         const FragB* b) {
-  mma3<N, 1>(c, &a, reinterpret_cast<const FragB(*)[N]>(b));
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -146,7 +152,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Swizzled [rows][D] float32 tiles, as the flash-attention kernels keep
+// Swizzled [rows][D] float32 tiles, as the flash-attention forward (K2) keeps
 // them in shared memory: each row's 16-byte chunks are XOR-permuted by a
 // function of the row's low three bits, so that a warp's float4 loads of
 // one column chunk from eight rows (the fragment loads over D, rows_dot),
@@ -245,11 +251,17 @@ __device__ __forceinline__ void store_vec(float* p, const float (&x)[N]) {
 // core matrices, element (n, k) at byte (n / 8) * 256 + (k / 4) * 128 +
 // (n % 8) * 16 + (k % 4) * 4 (K1's wrapper lays its bases out so:
 // avsum_torch/ops/melspec.py, _planes).
-__device__ __forceinline__ uint64_t wgmma_desc(const float* plane) {
-  const uint32_t a = smem_addr(plane);
-  return (uint64_t)((a >> 4) & 0x3FFF)     // start address
+__device__ __forceinline__ uint64_t wgmma_desc_at(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF)  // start address
          | ((uint64_t)(128 >> 4) << 16)    // LBO: the next core matrix in K
          | ((uint64_t)(256 >> 4) << 32);   // SBO: the next 8 rows in N
+}
+
+// The same for a plane by pointer. Its k-steps of 8 x N floats follow each
+// other every 32 N bytes, so k-step ks's descriptor is this plus 2 N ks
+// (the start address counts 16 bytes).
+__device__ __forceinline__ uint64_t wgmma_desc(const float* plane) {
+  return wgmma_desc_at(smem_addr(plane));
 }
 
 // Shared-memory writes by this thread (st.shared, cp.async) made visible
@@ -266,7 +278,21 @@ __device__ __forceinline__ void fence_operand(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += a * b, one k-step; N = 64 or 128 by the size of d.
+// d += a * b, one k-step; N = 32, 64 or 128 by the size of d.
+__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4],
+                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, "
+      "1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
 __device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4],
                                       uint64_t b) {
   asm volatile(
@@ -314,6 +340,21 @@ __device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// Register writes by this thread ordered before the wgmmas that follow.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // d += sum over k < K of a[k] * B[k] in 3xTF32, a = big + small split
 // (the small terms of every k-step first): the wgmmas chain in d, whose
 // own sums round toward zero, so d should start from zero where that drift
@@ -325,7 +366,7 @@ __device__ __forceinline__ void wgmma3(float (&d)[R],
                                        const uint32_t (&small)[K][4],
                                        const float* planes) {
   fence_operand(d);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma_fence();
 #pragma unroll
   for (int k = 0; k < K; ++k) wgmma(d, small[k], wgmma_desc(planes + 2 * k * PF));
 #pragma unroll
@@ -333,9 +374,92 @@ __device__ __forceinline__ void wgmma3(float (&d)[R],
     wgmma(d, big[k], wgmma_desc(planes + (2 * k + 1) * PF));
 #pragma unroll
   for (int k = 0; k < K; ++k) wgmma(d, big[k], wgmma_desc(planes + 2 * k * PF));
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_commit();
+  wgmma_wait<0>();
   fence_operand(d);
+}
+
+// As fence_operand, for A fragments: keeps them alive until the wgmmas
+// that read them were waited for.
+template <int K>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// mbarriers (8 bytes of shared memory each, by shared address) and TMA
+// loads. A TMA load copies a box of a tensor map into shared memory and
+// counts its bytes against the mbarrier's expected transaction bytes; the
+// barrier's phase completes when every expected arrival has arrived and
+// every byte has landed.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+// Makes the initialized barriers visible to the async proxy (TMA); then a
+// __syncthreads.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` more transaction bytes.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A new barrier is
+// in phase 0, so a wait for parity 1 returns at once.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the box of the 4-D tensor map `map` (a __grid_constant__ kernel
+// parameter) at coordinates (c0, c1, c2, c3), innermost first, into
+// shared memory at dst, completing on bar. Elements outside the tensor
+// land as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory loads and stores by shared address; volatile, so that they
+// keep their place among the barrier waits and wgmmas around them.
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float2 lds2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 }  // namespace tf32

@@ -26,6 +26,10 @@ kernels recompute its probabilities as 1 rather than 1/S, as the TPU
 kernels do. Its gradient terms are still right when its cotangent is 0,
 which holds in the scorer: every attention output is multiplied by the
 mask there.
+
+This module owns B3's and B4's tiling (:func:`bwd_layout`): the library
+reports its own (``avsum_flash_bwd_layout``), and the backward wrappers
+check the two agree before their first launch at a head width.
 """
 
 from __future__ import annotations
@@ -40,6 +44,12 @@ from avsum_torch.build import load_kernel
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128, 256)
+BWD_BLOCK = 32  # B3 / B4: resident rows a block owns (keys, queries): wgmma N
+BWD_TILE = 64  # streamed rows per tile: wgmma's M
+BWD_CHUNK = 64  # columns of D per TMA chunk (two 128-byte boxes)
+BWD_STAGES = {128: 8, 256: 4}  # TMA ring stages by head width
+SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may opt into
+SM_SMEM = 233_472  # an H100 SM's shared memory; a block also reserves 1 KB
 
 
 def _logits(q, k, mask):
@@ -122,6 +132,50 @@ def _bwd_lib() -> ctypes.CDLL:
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
         _INT, _INT, _INT, _INT, _STRIDES, _STRIDES, _STRIDES, _STRIDES, _PTR,
     ]
+    lib.avsum_flash_bwd_layout.restype = _INT
+    lib.avsum_flash_bwd_layout.argtypes = [_INT, ctypes.POINTER(ctypes.c_long)]
+    return lib
+
+
+def bwd_layout(d: int) -> dict:
+    """B3's and B4's tiling at head width ``d``, in the order
+    ``avsum_flash_bwd_layout`` reports it: resident rows a block owns,
+    streamed rows per tile, TMA stages of [BWD_TILE x BWD_CHUNK] floats,
+    dynamic shared memory in bytes (1 KB to align the ring, the ring, the
+    two resident tensors' big and small B planes, P's and dS's, two
+    mbarriers a stage) and blocks an SM holds by shared memory."""
+    if d not in BWD_STAGES:
+        raise ValueError(f"attention kernels take D in {KERNEL_HEAD_DIMS}, "
+                         f"got {d}")
+    stages = BWD_STAGES[d]
+    smem = (1024 + 4 * stages * BWD_TILE * BWD_CHUNK
+            + 4 * 2 * 2 * BWD_BLOCK * d + 4 * 2 * 2 * BWD_BLOCK * BWD_TILE
+            + 16 * stages)
+    layout = dict(block_rows=BWD_BLOCK, tile_rows=BWD_TILE, stages=stages,
+                  smem=smem, blocks_per_sm=SM_SMEM // (smem + 1024))
+    assert smem <= SMEM_LIMIT, layout
+    return layout
+
+
+def check_bwd_layout(reported, d: int) -> None:
+    """Raises unless the library's tiling at ``d`` (the 5 numbers of
+    ``avsum_flash_bwd_layout``) is :func:`bwd_layout`'s."""
+    ours = bwd_layout(d)
+    if list(reported) != list(ours.values()):
+        raise RuntimeError(
+            f"attention backward's layout {list(reported)} is not the "
+            f"wrapper's {ours} at D = {d}: csrc/flash_bwd.cu and "
+            f"ops/attention.py disagree")
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_bwd_lib(d: int) -> ctypes.CDLL:
+    """The backward library, once its tiling at ``d`` is checked against
+    ours."""
+    lib = _bwd_lib()
+    out = (ctypes.c_long * 5)()
+    _raise_on(lib.avsum_flash_bwd_layout(d, out), "attention backward layout")
+    check_bwd_layout(out, d)
     return lib
 
 
@@ -217,8 +271,8 @@ def _bwd_args(q, k, v, do, mask, lse, delta):
 def _vec4(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its base address is 16-byte aligned and its
     (b, s, h) strides are multiples of 4 floats, as the kernels' 16-byte
-    copies need (slices of the fused qkv projection are); a contiguous
-    copy otherwise."""
+    copies and TMA loads need (slices of the fused qkv projection are); a
+    contiguous copy otherwise."""
     if t.data_ptr() % 16 == 0 and all(
             st % 4 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
         return t
@@ -236,8 +290,8 @@ def flash_bwd_dkv(q, k, v, do, mask, lse, delta):
     dk = torch.empty(q.shape, device=q.device, dtype=torch.float32)
     dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):
-        err = _bwd_lib().avsum_flash_bwd_dkv(*lead, dk.data_ptr(),
-                                             dv.data_ptr(), *tail)
+        err = _checked_bwd_lib(q.shape[-1]).avsum_flash_bwd_dkv(
+            *lead, dk.data_ptr(), dv.data_ptr(), *tail)
     _raise_on(err, "attention dK/dV")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -252,7 +306,8 @@ def flash_bwd_dq(q, k, v, do, mask, lse, delta):
     mask, lead, tail = _bwd_args(q, k, v, do, mask, lse, delta)
     dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
-        err = _bwd_lib().avsum_flash_bwd_dq(*lead, dq.data_ptr(), *tail)
+        err = _checked_bwd_lib(q.shape[-1]).avsum_flash_bwd_dq(
+            *lead, dq.data_ptr(), *tail)
     _raise_on(err, "attention dQ")
     flash_bwd_dq.launches += 1
     return dq

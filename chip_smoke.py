@@ -24,7 +24,9 @@ raising on failure:
 6. each kernel against its plain PyTorch version on the card, float32
    with TF32 off, on fixed cases and at the shapes the runs gave it (K1
    also at 64 mel bands and on a quiet waveform; K2, B3 and B4 also at
-   the hour step's S = 7168), with CUDA-event times of both at those
+   the hour step's S = 7168; B3 and B4 also at S = 63, 64, 65, 127 and
+   129, around their 32-row blocks and 64-row tiles), with CUDA-event
+   times of both at those
    shapes, taken in turns over 5 rounds (median, min-max), beside each
    kernel's bound (:func:`bound`) and the time of the one PyTorch call
    that computes the same function (SDPA's efficient attention for K2,
@@ -514,7 +516,10 @@ def check_b34() -> tuple:
 
     worst = {"dkv": 0.0, "dq": 0.0}
     for d in (128, 256):
-        for s in (40, 512, 544, 1000, 1024, 2049):
+        print(f"B3/B4 layout at D={d}: {att.bwd_layout(d)} (held to the "
+              f"library's at the first launch)")
+        # S around the tiles (32 resident rows a block, 64 streamed a tile)
+        for s in (40, 63, 64, 65, 127, 129, 512, 544, 1000, 1024, 2049):
             qkv, mask, cot = _flash_case(2, s, d, seed=s + d)
             args = _bwd_inputs(qkv, mask, cot)
             dk, dv = att.flash_bwd_dkv(*args)
@@ -557,9 +562,10 @@ def check_b34() -> tuple:
         lib = (f"{fmt_ms(t['library'])} against B3 + B4 "
                f"{t['dkv'][0] + t['dq'][0]:.3f} ms" if library else "none")
         print(f"B3/B4 at [1, 1024, 4, {d}]: B3 {fmt_ms(t['dkv'])}, plain "
-              f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms; B4 "
-              f"{fmt_ms(t['dq'])}, plain {fmt_ms(t['dq_plain'])}, bound "
-              f"{b4['bound_ms']:.4f} ms; forward+backward, kernel route "
+              f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms "
+              f"({b3['bound_ms'] / t['dkv'][0]:.1%}); B4 {fmt_ms(t['dq'])}, "
+              f"plain {fmt_ms(t['dq_plain'])}, bound {b4['bound_ms']:.4f} ms "
+              f"({b4['bound_ms'] / t['dq'][0]:.1%}); forward+backward, kernel route "
               f"{fmt_ms(t['route'])}, plain route {fmt_ms(t['route_plain'])}; "
               f"library (SDPA efficient-attention backward, dq dk dv) {lib} "
               f"({lib_note})")
@@ -593,9 +599,10 @@ def check_b34() -> tuple:
         lib = (f"{fmt_ms(t['library'])} against B3 + B4 "
                f"{t['dkv'][0] + t['dq'][0]:.3f} ms" if library else "none")
         print(f"B3/B4 at [1, 7168, 4, {d}]: B3 {fmt_ms(t['dkv'])}, plain "
-              f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms; B4 "
-              f"{fmt_ms(t['dq'])}, plain {fmt_ms(t['dq_plain'])}, bound "
-              f"{b4['bound_ms']:.4f} ms; library (SDPA efficient-attention "
+              f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms "
+              f"({b3['bound_ms'] / t['dkv'][0]:.1%}); B4 {fmt_ms(t['dq'])}, "
+              f"plain {fmt_ms(t['dq_plain'])}, bound {b4['bound_ms']:.4f} ms "
+              f"({b4['bound_ms'] / t['dq'][0]:.1%}); library (SDPA efficient-attention "
               f"backward, dq dk dv) {lib} ({lib_note})")
         del fns, library, args
     t, b3, b4 = timing[256]

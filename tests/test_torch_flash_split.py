@@ -1,0 +1,121 @@
+"""The 3xTF32 arithmetic of B3 and B4 (``csrc/flash_bwd.cu``), emulated in
+NumPy on the CPU: can the split the kernels use meet the card's tolerance
+on the gradients (``chip_smoke.py``'s ``B34_TOL``, rtol = atol = 1e-4) at
+the hour step's S = 7168?
+
+The emulation follows the kernels: the A operand, read from every
+streamed tile, split in two instructions (``mma_tf32.cuh``'s
+``split_trunc``: big = x truncated to TF32, small = x - big, which the MMA
+truncates too), or by ``split`` (both parts rounded) for comparison; the B
+planes split by ``split``; a product of 8 k-steps summed from zero, each
+k-step's three TF32 terms (small x big, big x small, big x big, the small
+terms first) added exactly and rounded toward zero into float32, as the
+tensor cores accumulate; that run's sum then added to the float32
+accumulator rounding to nearest.
+Held against float64 on seeded [7168, 256] rows: the contraction over
+the sequence (dK^T = Q^T dS, dV^T = dO^T P) and over D (S = Q K^T)."""
+
+import numpy as np
+import pytest
+
+from avsum_torch.ops.melspec import split_tf32
+
+B34_TOL = 1e-4  # chip_smoke.py: rtol = atol on dq, dk, dv
+RUN = 8  # k-steps a product sums from zero
+S, D, N = 7168, 256, 16  # rows, head width, one warpgroup's resident rows
+
+
+def _trunc_tf32(a):
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(a, how):
+    """-> (big, small) float32 as the MMA reads them: ``split`` (rounded)
+    or ``split_trunc`` (truncated)."""
+    if how == "rounded":
+        parts = split_tf32(a)
+        return parts[..., 0], parts[..., 1]
+    hi = _trunc_tf32(a)
+    return hi, _trunc_tf32(a - hi)
+
+
+def _add_toward_zero(acc, x):
+    """float32(acc + x) rounded toward zero (the sum exact in float64)."""
+    exact = acc.astype(np.float64) + x
+    near = exact.astype(np.float32)
+    over = np.abs(near.astype(np.float64)) > np.abs(exact)
+    return np.where(over, np.nextafter(near, np.float32(0)), near)
+
+
+def emulate(a, b, a_split="truncated", run=RUN, passes=3):
+    """a [K, M], b [K, N] float32 -> a^T b [M, N] float32 as the kernels'
+    wgmmas sum it: a split by ``a_split``, b by ``split``; k-steps of 8 in
+    runs of ``run``; ``passes`` 3 is 3xTF32, 1 a single TF32 product."""
+    a_hi, a_lo = _split(a, a_split)
+    b_hi, b_lo = _split(b, "rounded")
+    terms = ([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if passes == 3
+             else [(a_hi, b_hi)])
+    k = a.shape[0]
+    acc = np.zeros((a.shape[1], b.shape[1]), np.float32)
+    for r0 in range(0, k, 8 * run):
+        part = np.zeros_like(acc)
+        for x, y in terms:
+            for k0 in range(r0, min(r0 + 8 * run, k), 8):
+                step = np.einsum("km,kn->mn", x[k0:k0 + 8].astype(np.float64),
+                                 y[k0:k0 + 8].astype(np.float64))
+                part = _add_toward_zero(part, step)
+        acc = (acc.astype(np.float32) + part).astype(np.float32)
+    return acc
+
+
+def _worst(got, want):
+    """max of |got - want| / (atol + rtol |want|): <= 1 within B34_TOL."""
+    return float(np.max(np.abs(got - want) / (B34_TOL + B34_TOL * np.abs(want))))
+
+
+def _sequence_case(seed):
+    """Q [S, D] and dS [S, N] at the scale a unit-sized gradient has."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((S, D)).astype(np.float32)
+    ds = (rng.standard_normal((S, N)) / np.sqrt(S)).astype(np.float32)
+    return q, ds
+
+
+@pytest.mark.parametrize("a_split", ["truncated", "rounded"])
+def test_split_meets_b34_tol_over_the_sequence(a_split):
+    """dK^T = Q^T dS over 7168 rows (896 k-steps, 112 runs)."""
+    q, ds = _sequence_case(7168)
+    want = q.astype(np.float64).T @ ds.astype(np.float64)
+    worst = _worst(emulate(q, ds, a_split), want)
+    assert worst < 0.1, worst  # within a tenth of the tolerance
+
+
+@pytest.mark.parametrize("a_split", ["truncated", "rounded"])
+def test_split_meets_b34_tol_over_d(a_split):
+    """S = Q K^T over D = 256 (32 k-steps), |S| up to ~60, where a score
+    error of 1e-4 moves P by 1e-4 / 16 relative."""
+    rng = np.random.default_rng(256)
+    q = rng.standard_normal((D, 64)).astype(np.float32)
+    k = rng.standard_normal((D, N)).astype(np.float32)
+    want = q.astype(np.float64).T @ k.astype(np.float64)
+    worst = _worst(emulate(q, k, a_split), want)
+    assert worst < 0.1, worst
+
+
+def test_one_tf32_pass_misses_b34_tol():
+    """The emulation has the power to fail: one TF32 product (three
+    decimal digits) misses the tolerance on the same rows."""
+    q, ds = _sequence_case(7168)
+    want = q.astype(np.float64).T @ ds.astype(np.float64)
+    assert _worst(emulate(q, ds, passes=1), want) > 1.0
+
+
+def test_runs_of_8_drift_less_than_one_long_run():
+    """Summing each run of 8 k-steps from zero keeps the tensor cores'
+    rounding toward zero from piling up over the 896 k-steps."""
+    q, ds = _sequence_case(1)
+    want = q.astype(np.float64).T @ ds.astype(np.float64)
+    short = np.abs(emulate(q, ds) - want).max()
+    long = np.abs(emulate(q, ds, run=S // 8) - want).max()
+    assert short < long

@@ -14,6 +14,8 @@ kernel test's), K2 rtol = atol = 1e-5, B3 / B4 rtol = atol = 1e-4 on the
 gradients.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -144,14 +146,20 @@ def test_flash_fwd_kernel_reads_unaligned_views(cuda, d):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
 
+# S around B3's and B4's tiles: 32 resident rows a block, 64 streamed rows
+# a tile (ops/attention.py bwd_layout)
+BWD_EDGES = [63, 64, 65, 127, 129]
+
+
 @pytest.mark.parametrize("layout", ["qkv", "unaligned"])
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("s", [40, 544, 1024, 2049])
+@pytest.mark.parametrize("s", [40, 544, 1024, 2049, *BWD_EDGES])
 def test_flash_bwd_dq_kernel_matches_plain(cuda, d, s, layout):
     """B4 alone against its plain version on the same inputs: a partial
-    key tile (S = 40), the scorer's S, a ragged multi-tile S, a padded tail
-    and a fully masked row (its P recomputed as 1 from LSE = -1e30); q and
-    dO also as views that are not 16-byte aligned."""
+    key tile (S = 40), the scorer's S, a ragged multi-tile S, S on and
+    beside the block and tile edges, a padded tail and a fully masked row
+    (its P recomputed as 1 from LSE = -1e30); q and dO also as views that
+    are not 16-byte aligned."""
     qkv, mask, cot = _bwd_case(cuda, 2, s, d, seed=s + 2 * d)
     q, k, v = qkv.unbind(2)
     out, lse = flash_attention_fwd(q, k, v, mask)
@@ -167,12 +175,13 @@ def test_flash_bwd_dq_kernel_matches_plain(cuda, d, s, layout):
 
 @pytest.mark.parametrize("layout", ["qkv", "unaligned_dout"])
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("s", [40, 2049])
+@pytest.mark.parametrize("s", [40, 2049, *BWD_EDGES])
 def test_flash_bwd_dkv_kernel_matches_plain(cuda, d, s, layout):
     """B3 alone against its plain version on the same inputs: one partial
-    query tile (S = 40) and a ragged multi-tile S, a padded tail and a
-    fully masked row; dO also as a view that is not 16-byte aligned,
-    which the wrapper copies for the kernel's 16-byte loads."""
+    query tile (S = 40), a ragged multi-tile S, S on and beside the block
+    and tile edges, a padded tail and a fully masked row; dO also as a
+    view that is not 16-byte aligned, which the wrapper copies for the
+    kernel's TMA loads."""
     qkv, mask, cot = _bwd_case(cuda, 2, s, d, seed=s + d)
     q, k, v = qkv.unbind(2)
     if layout == "unaligned_dout":
@@ -187,8 +196,32 @@ def test_flash_bwd_dkv_kernel_matches_plain(cuda, d, s, layout):
     torch.testing.assert_close(dv, pv, rtol=1e-4, atol=1e-4)
 
 
+def test_flash_bwd_wgmmas_are_not_serialized(cuda):
+    """ptxas runs B3's and B4's wgmmas back to back: it serializes them
+    (note C7514, each waiting for the one before) when a loop keeps a
+    wgmma group in flight across its back edge."""
+    from avsum_torch import build
+    from avsum_torch.ops import attention
+
+    attention._bwd_lib()
+    lib = build.library_path("flash_bwd")
+    log = lib.with_name(lib.name + ".log").read_text()
+    assert "C7514" not in log, log
+
+
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("s", [512, 545, 40, 544, 1024, 2049])
+def test_flash_bwd_layout_matches_the_library(cuda, d):
+    """The library's B3 / B4 tiling is the wrapper's (bwd_layout)."""
+    from avsum_torch.ops import attention
+
+    lib = attention._bwd_lib()
+    out = (ctypes.c_long * 5)()
+    assert lib.avsum_flash_bwd_layout(d, out) == 0
+    attention.check_bwd_layout(out, d)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("s", [512, 545, 40, 544, 1024, 2049, *BWD_EDGES])
 def test_flash_backward_kernels_match_plain(cuda, d, s):
     """dq, dk, dv through K2 -> B3 -> B4 against autograd of the plain
     version; q, k, v are strided views of one qkv tensor, as in the
