@@ -1,6 +1,7 @@
 // Flash-attention forward: O = softmax(Q K^T / sqrt(D) + key bias) V with
 // an online softmax, float32 throughout; the [S, S] probabilities never
-// reach device memory. Also writes LSE = m + log(l) per query row.
+// reach device memory. Also writes LSE = m + log(max(l, 1e-30)) per query
+// row.
 //
 // Replaces the TPU kernel avsum_tpu/ops/attention.py::_flash_fwd_kernel
 // (pallas_call in _flash_fwd; wrapper flash_attention). Python wrapper:
@@ -8,314 +9,474 @@
 //
 // Layout: q, k, v are [B, S, H, D] views read through their (b, s, h)
 // strides with a unit stride on D, so the scorer's fused qkv projection
-// [B, S, 3, H, D] is read in place; they arrive by 16-byte cp.async, so
-// those strides must be multiples of 4 floats and the base addresses
-// 16-byte aligned (the wrapper copies a view that is not). Out is
+// [B, S, 3, H, D] is read in place; the strides must be multiples of 4
+// floats and the base addresses 16-byte aligned, as TMA and the 16-byte
+// query loads need (the wrapper copies a view that is not). Out is
 // [B, S, H, D] contiguous, LSE [B, H, S]. Keys past S (the ragged last
-// tile) are skipped, so S needs no padding; masked keys get a -1e30 bias,
-// and a row whose keys are all masked averages V uniformly over the S
-// keys (the materialized softmax's answer). The denominator is clamped at
-// 1e-30 as in the TPU kernel.
+// tile) land as zeros and take no part, so S needs no padding; masked
+// keys take part at a -1e30 bias, so a row whose keys are all masked
+// averages V uniformly over the S keys (the materialized softmax's
+// answer) and has LSE = -1e30 in float32, which B3 and B4 rely on.
 //
 // What bounds it on an H100: arithmetic. 4 * S^2 * D flops per head (two
-// S x S x D products) against O(S * D) bytes: at [1, 544, 4, 256] 1.21
-// GFLOP against 6.7 MB of q, k, v and out (2 us at 3.35 TB/s); in 3xTF32
-// (three TF32 products each, for float32's accuracy) that is at least
-// 7.3 us at the dense TF32 peak of 495 TFLOP/s. And at the scorer's
-// shortest kernel sequences the grid is small: B * H * ceil(S / 32) = 68
-// blocks of 32 queries at [1, 544, 4, D], for 132 SMs.
+// S x S x D products) against O(S * D) bytes; in 3xTF32 (three TF32
+// products each, for float32's accuracy) at the dense TF32 peak of 495
+// TFLOP/s that is at least 1.28 ms at [1, 7168, 4, 256], 0.64 ms at D =
+// 128, where q, k, v and out take 0.035 ms at 3.35 TB/s.
 //
-// Design: the TPU grid walked key blocks in order with VMEM scratch; here
-// a block of 8 warps owns (b, h, kRows = 16 MT queries) and loops over
-// tiles of kKeys = 4096 / D keys (16 at D = 256, 32 at D = 128), with
-// both products on the tensor cores, mma.sync m16n8k8 TF32 in the 3xTF32
-// split (mma_tf32.cuh). Per tile:
-//   1. S = Q K^T [kRows x kKeys]: each warp takes one (m-tile, 16 keys)
-//      pair and one of the D-parts that 8 warps leave per pair, and
-//      computes its two 8-key n-tiles over that part with B3's fragment
-//      loads (float4s of the swizzled rows); the partial sums go to shared
-//      memory.
-//   2. The online softmax: 256 / kRows threads per query row sum the
-//      parts of its keys and reduce the row's max and sum by shuffles
-//      within the row's lanes; they keep the row's running max and sum in
-//      registers and write P and the rescale alpha = exp(m_old - m_new) to
-//      shared memory.
-//   3. O = alpha O + P V over the tile's keys: warp w owns columns
-//      [w D / 8, (w + 1) D / 8) of O for all kRows rows, in registers (32 a
-//      thread at D = 256, MT = 2). Within each group of NT = D / 64 n-tiles
-//      a warp owns, n-tile i's column g is column NT g + i, so the B
-//      fragments of all NT n-tiles at one key are NT consecutive floats of
-//      a V row, one vector load. P's A fragments are float2 loads.
-// Q stays resident; K and V tiles (and the tile's key mask) are
-// double-buffered: the next tile's 16-byte cp.async copies are issued
-// before this tile's products. Three barriers a tile, and the softmax
-// between them, cost the same at any kKeys, so the tile is as long as
-// two blocks per SM allow (95 and 111 KB of shared memory at D = 128 and
-// 256 with 32-query blocks): on an H100, 32-key tiles at D = 128 took
-// 3.08 ms at [1, 7168, 4, 128] against 3.83 with 16, and 32-key tiles at
-// D = 256 (one block per SM) 6.46 ms against 6.11 at [1, 7168, 4, 256]
-// (scripts/time_flash_torch.py).
-// The launcher takes MT = 2 (32 queries a block), or MT = 1 where
-// B * H * ceil(S / 32) is below the card's SM count: at [1, 544, 4, D]
-// that makes 136 blocks of 16 queries, which two-per-SM residency holds
-// in one wave, instead of 68 of 32 that leave half the SMs idle. At long
-// S a 32-query block reads each K / V tile for twice the queries, halving
-// the tiles' traffic from L2.
+// Design: B4's (flash_bwd.cu) with the roles set for the forward, on the
+// machinery of flash_tiles.cuh. A block of two warpgroups (256 threads)
+// owns R queries of one (b, h): R = 64, or 32 where 64-query blocks would
+// not cover the card's SMs (the launcher's choice, below). The R queries
+// are the N of every product (wgmma m64nRk8 TF32 in the 3xTF32 split,
+// mma_tf32.cuh), their big and small K-major B planes loaded and split
+// once a block (R D floats each). K and V stream in tiles of kTile = 64
+// keys (wgmma's M), by TMA, in chunks of [64 keys x 64 columns of D], and
+// the two groups take D's chunks by turns: group g reads chunks c with
+// c % 2 == g, gathers its A fragments from the landed chunk into
+// registers and splits them there in two instructions (split_trunc, held
+// to the tolerance by tests/test_torch_flash_split.py). Per tile:
+//   1. S^T = K Q^T [64 keys x R queries]: each group its half of D (A the
+//      K chunks by row, B the query planes), a partial sum in registers.
+//   2. The exchange: each group softmaxes half of the queries, so each
+//      hands the other its partial of the other's columns (16 floats a
+//      thread at R = 64) through the other's columns of the P planes, which
+//      that group overwrites with its P once read.
+//   3. The online softmax of the group's R / 2 queries over the tile's 64
+//      keys, spread over its four warps (16 rows each), in base 2: the
+//      scale and the key bias times log2(e), -inf for keys past S; each
+//      column's max by shuffles within a warp, then across the warps
+//      through a small shared buffer (one 16-byte load a column); alpha =
+//      2^(m_old - m_new), P = 2^(S^T - m_new) (the SFU's ex2) split into
+//      the P planes [R queries x 64 keys], each thread's share of the
+//      running sum l (the shares are added once, at the end); alpha into
+//      a shared row. LSE = m / log2(e) + log(l): -1e30 log2(e) / log2(e)
+//      is -1e30 again in float32, so a row with every key masked keeps
+//      its LSE of -1e30 for B3 and B4.
+//   4. O^T = alpha O^T + V^T P^T [D x R]: each group its half of D's 64-row
+//      m-tiles (A the V chunks by column, B the P planes), rescaled by
+//      every query's alpha in registers first; O^T stays in registers,
+//      D R / 256 floats a thread: 64 at D = 256, R = 64.
+// Three barriers of all 256 threads a tile (S^T done, so the P planes are
+// free; the partials exchanged; P and alpha written) and one of each
+// group's 128 (its warps' maxima). The groups run the softmax at once, on
+// half the columns each, while the tensor cores wait.
+//
+// Why both groups split D and both run a softmax: splitting the queries
+// between the groups instead (N = R / 2, every chunk gathered by both)
+// ran [1, 7168, 4, 256] in 3.11 ms on an H100 against this design's 2.74
+// (scripts/time_flash_torch.py on both trees in turns, before the softmax
+// moved to base 2; PERF.md), its wgmma stream far from the TF32 peak even
+// without gathers or softmax. Here the gathers cost next to nothing and
+// the softmax phase, when the tensor cores wait, is what bounds it: so
+// both groups take half of it, not one group all of it. The exchange goes
+// through the P planes because a buffer of its own (16 KB at R = 64) would
+// cost a ring stage at D = 256.
+//
+// The ring: kStages stages of 16 KB, a tile's K chunks, then its V chunks,
+// tracked by full and empty mbarriers. Each chunk has one reader group,
+// so a stage's empty barrier waits for four warps, and that group's first
+// thread loads the chunk kStages ahead into the stage once they are done.
+// The query planes and P's fill the rest of the shared memory; the ring
+// takes what is left:
+//   R = 64: 4 stages at D = 256 (231,744 bytes), 8 at D = 128 (231,808);
+//   R = 32: 9 stages at D = 256 (231,184), 11 at D = 128 (231,216);
+// one block an SM. avsum_flash_fwd_layout reports this tiling; the wrapper
+// checks it against its own (fwd_layout) before its first launch at a D.
+//
+// As in B3 and B4 (flash_bwd.cu's note): each product of a chunk is 24
+// wgmmas in two commit groups of 4 k-steps, the next group's A fragments
+// read while the group before runs, its sum started from zero and added to
+// the float32 accumulator once (8 k-steps a run); the phase loops are
+// unrolled so that ptxas does not serialize the wgmmas (note C7514). The
+// epilogue divides by l and stores O and LSE one element at a time.
+//
+// The launcher takes R = 64 where B * H * ceil(S / 64) reaches the card's
+// SM count, else R = 32: [1, 7168, 4, D] runs 448 blocks of 64 queries
+// (3.4 waves on 132 SMs); [1, 544, 4, D] (summarize of a 533-shot video)
+// 68 blocks of 32, where 64 would fill 36 SMs; [1, 1024, 4, D] (the train
+// run) 128 of 32.
+//
+// Time on an H100: PERF.md (chip_smoke.py's check_k2).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include "mma_tf32.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kMaskBias = -1e30f;
+using namespace flash;
 
-template <int D, int MT>
-struct FwdSmem {
-  static constexpr int kRows = 16 * MT;         // queries per block
-  static constexpr int kKeys = 4096 / D;        // keys per K / V tile
-  static constexpr int kPitch = kKeys + 8;      // rows of the S parts and P
-  static constexpr int kPairs = MT * kKeys / 16;  // (m-tile, 16 keys) pairs
-  static constexpr int kParts = kWarps / kPairs;  // D-parts of the S product
-  static constexpr size_t kFloats =
-      (size_t)kRows * D                  // Q
-      + 4 * (size_t)kKeys * D            // two stages of K and V
-      + (size_t)kParts * kRows * kPitch  // S partial sums
-      + (size_t)kRows * kPitch           // P
-      + 2 * (size_t)kKeys                // two stages of the key mask
-      + 2 * (size_t)kRows;               // alpha, the final row sums
-  // blocks that share an SM's 228 KB (1 KB of it reserved for each)
-  static constexpr int kBlocksPerSM =
-      2 * (kFloats * sizeof(float) + 1024) <= 228 * 1024 ? 2 : 1;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
+// named barriers of all 256 threads (1 + group: one group's own)
+constexpr int kBarSDone = 3, kBarXReady = 4, kBarPReady = 5;
+
+// The tiling of a block of R queries at head width D.
+template <int D, int R>
+struct Layout {
+  static constexpr int kChunks = D / kChunk;
+  static constexpr int kPlane = R * D;       // a query plane
+  static constexpr int kPPlane = R * kTile;  // a P plane
+  static constexpr size_t kFixed =
+      1024                           // to align the ring
+      + 4 * (size_t)(2 * kPlane)     // the query planes, big and small
+      + 4 * (size_t)(2 * kPPlane)    // the P planes, big and small
+      + 4 * (size_t)(4 * R + R);     // the softmax's maxima and sums, alpha
+  // as many stages as fit, each with full and empty mbarriers
+  static constexpr int kStageBytes = kChunkBytes + 8 + 8;
+  static constexpr int kStages = (kSmemLimit - (int)kFixed) / kStageBytes;
+  static constexpr size_t kBytes = kFixed + (size_t)kStages * kStageBytes;
+};
+static_assert(Layout<256, 64>::kStages == 4 && Layout<128, 64>::kStages == 8,
+              "K2's ring at 64 queries a block");
+static_assert(Layout<256, 32>::kStages == 9 && Layout<128, 32>::kStages == 11,
+              "K2's ring at 32 queries a block");
+
+// 2^x by the SFU (ex2.approx: a relative error of ~2^-22, 2^-inf = 0); the
+// softmax runs in base 2, its scores and maxima scaled by log2(e).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  const float* q;
+  long qs[3];         // q's (b, s, h) strides
+  const float* mask;  // [B, S] or null
+  float *out, *lse;   // [B, S, H, D], [B, H, S]
+  int S, H;
+  float scale;
 };
 
-template <int D, int MT>
-__global__ void __launch_bounds__(kThreads, FwdSmem<D, MT>::kBlocksPerSM)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
-                 const float* __restrict__ mask,  // [B, S] or null
-                 float* __restrict__ out, float* __restrict__ lse, int S,
-                 int H, long qsb, long qss, long qsh, long ksb, long kss,
-                 long ksh, long vsb, long vss, long vsh, float scale) {
-  using Smem = FwdSmem<D, MT>;
-  constexpr int kRows = Smem::kRows;
-  constexpr int kKeys = Smem::kKeys;
-  constexpr int kPitch = Smem::kPitch;
-  constexpr int kPairs = Smem::kPairs;
-  constexpr int kParts = Smem::kParts;
-  constexpr int kSpan = D / kParts;              // D columns of an S part
-  constexpr int NT = D / 64;                     // n-tiles of O per warp
-  constexpr int kRowThreads = kThreads / kRows;  // softmax threads per row
-  constexpr int kRowKeys = kKeys / kRowThreads;  // keys per softmax thread
-  constexpr int kSteps = kKeys / 8;              // k-steps of P V per tile
-  static_assert(kSpan % 16 == 0 && kRowKeys >= 1, "tiling");
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Layout<D, R>;
+  constexpr int NC = L::kChunks;
+  constexpr int NG = NC / 2;         // chunks of a product a group takes
+  constexpr int kPerTile = 2 * NC;   // chunks a tile
+  constexpr int HC = R / 2;          // queries whose softmax a group runs
+  constexpr int I2 = R / 16;         // their 8-column n-tiles
+  constexpr uint64_t kChunkDesc = 4 * 8 * 8 * R >> 4;  // 8 k-steps of a plane
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // [kRows][D] swizzled
-  float* sk = sq + kRows * D;                   // [2][kKeys][D] swizzled
-  float* sv = sk + 2 * kKeys * D;               // [2][kKeys][D] swizzled
-  float* ss = sv + 2 * kKeys * D;               // [kParts][kRows][kPitch]
-  float* sp = ss + kParts * kRows * kPitch;     // [kRows][kPitch]  P
-  float* smask = sp + kRows * kPitch;           // [2][kKeys]  key mask > 0
-  float* salpha = smask + 2 * kKeys;            // [kRows]
-  float* sl = salpha + kRows;                   // [kRows]
+  // Shared addresses: the ring (1024-aligned for the 128-byte swizzle),
+  // the query planes [big, small], the P planes [big, small], the
+  // warps' maxima or sums [group][HC][warp], alpha or l [R], the
+  // mbarriers full[stage], empty[stage].
+  const uint32_t ring = (tf32::smem_addr(smem4) + 1023) & ~1023u;
+  const uint32_t q_big = ring + L::kStages * kChunkBytes;
+  const uint32_t q_small = q_big + 4 * L::kPlane;
+  const uint32_t p_big = q_small + 4 * L::kPlane;
+  const uint32_t p_small = p_big + 4 * L::kPPlane;
+  const uint32_t red = p_small + 4 * L::kPPlane;
+  const uint32_t cols = red + 4 * 4 * R;
+  const uint32_t full = cols + 4 * R;
+  const uint32_t empty = full + 8 * L::kStages;
 
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const float* kb = k + b * ksb + h * ksh;
-  const float* vb = v + b * vsb + h * vsh;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int S = p.S;
+  const int n_tiles = (S + kTile - 1) / kTile;
+  const int n_chunks = n_tiles * kPerTile;
 
-  auto copy_tile = [&](int k0, int buf) {
-    tf32::copy_rows<D, kKeys, kThreads>(sk + buf * kKeys * D, kb, kss, k0, S);
-    tf32::copy_rows<D, kKeys, kThreads>(sv + buf * kKeys * D, vb, vss, k0, S);
-    if (threadIdx.x < kKeys) {
-      const int s = k0 + threadIdx.x;
-      float* dst = smask + buf * kKeys + threadIdx.x;
-      if (mask == nullptr) {
-        *dst = 1.f;
-      } else {
-        tf32::cp_async4(dst, mask + (long)b * S + (s < S ? s : 0), s < S);
-      }
-    }
+  // Chunk m of the stream into its stage: tile m / kPerTile, K's chunks
+  // c < NC, then V's.
+  auto load = [&](int m) {
+    const int s = m % L::kStages, it = m / kPerTile, pos = m % kPerTile;
+    const CUtensorMap* map = pos < NC ? &tk : &tv;
+    const int c = pos < NC ? pos : pos - NC;
+    const uint32_t dst = ring + s * kChunkBytes;
+    tf32::mbar_expect_tx(full + 8 * s, kChunkBytes);
+    tf32::tma_load_4d(dst, map, full + 8 * s, c * kChunk, h, it * kTile, b);
+    tf32::tma_load_4d(dst + kBoxBytes, map, full + 8 * s, c * kChunk + kBox,
+                      h, it * kTile, b);
   };
-  tf32::copy_rows<D, kRows, kThreads>(sq, q + b * qsb + h * qsh, qss, q0, S);
-  copy_tile(0, 0);
-  tf32::cp_async_commit();
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      tf32::mbar_init(full + 8 * s, 1);
+      tf32::mbar_init(empty + 8 * s, 4);  // the warps of the group reading it
+    }
+    tf32::mbar_fence_init();
+    for (int m = 0; m < L::kStages && m < n_chunks; ++m) load(m);
+  }
+  split_rows<R, D, kThreads>(q_big, q_small, p.q + b * p.qs[0] + h * p.qs[2],
+                             p.qs[1], q0, S, tid);
+  tf32::fence_proxy_async();
+  __syncthreads();
 
-  // 1: this warp's m-tile rows, 16 keys and D-part
-  const int srow = 16 * (warp % kPairs % MT) + g;
-  const int skey = 16 * (warp % kPairs / MT);
-  const int part = warp / kPairs;
-  float* s_part = ss + part * kRows * kPitch;
-  // 2: this thread's query row and keys
-  const int row = threadIdx.x / kRowThreads;
-  const int key0 = (threadIdx.x % kRowThreads) * kRowKeys;
-  float m_run = kMaskBias, l_run = 0.f;
-  // 3: O columns [cb, cb + D / 8)
-  const int cb = warp * (D / 8);
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  // The group index through a shuffle, so that the compiler knows it is
+  // the same across the warp and keeps the planes' descriptors uniform.
+  const int grp = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const uint64_t qd_big = tf32::wgmma_desc_at(q_big);
+  const uint64_t qd_small = tf32::wgmma_desc_at(q_small);
+  const uint64_t pd_big = tf32::wgmma_desc_at(p_big);
+  const uint64_t pd_small = tf32::wgmma_desc_at(p_small);
+  const uint32_t my_red = red + 4 * grp * 4 * HC;  // [HC][warp]
+  const Gather ga(w, g, t);
+  // Value j of this thread's share of the partial scores that half hh of
+  // the queries takes from the other group: in the big P plane's columns of
+  // half hh, which that half's group overwrites with its P once read.
+  auto xchg = [&](int hh, int j) {
+    const int v = j * 128 + (tid & 127);
+    return p_big + 4 * ((v / (4 * R)) * 8 * R + 4 * R * hh + v % (4 * R));
+  };
 
-  const int n_tiles = (S + kKeys - 1) / kKeys;
+  // Chunk n of the stream: wait for it to land; -> its shared address.
+  auto take = [&](int n) {
+    const int s = n % L::kStages;
+    tf32::mbar_wait(full + 8 * s, (n / L::kStages) & 1);
+    return ring + s * kChunkBytes;
+  };
+  // This warp is done reading chunk n; the group's first thread then loads
+  // chunk n + kStages into the stage once the group's four warps are done.
+  auto release = [&](int n) {
+    return [&, n]() {
+      const int s = n % L::kStages;
+      tf32::fence_proxy_async();  // these reads before the stage's next TMA
+      __syncwarp();
+      if (lane == 0) tf32::mbar_arrive(empty + 8 * s);
+      if ((tid & 127) == 0 && n + L::kStages < n_chunks) {
+        tf32::mbar_wait(empty + 8 * s, (n / L::kStages) & 1);
+        load(n + L::kStages);
+      }
+      __syncwarp();
+    };
+  };
+
+  // Accumulator element v[4i + e] of a product: row 16w + g + 8 (e / 2),
+  // query column 8i + 2t + e % 2. The group's own queries are the columns
+  // grp HC + 8 i2 + 2t + j (i = grp I2 + i2); their running max and sum
+  // are at [2 i2 + j].
+  float acc[NG][R / 2];  // O^T, m-tile 2jj + grp of D at [jj]
+#pragma unroll
+  for (int jj = 0; jj < NG; ++jj)
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) acc[jj][i] = 0.f;
+  float m_run[2 * I2], l_run[2 * I2];
+#pragma unroll
+  for (int j = 0; j < 2 * I2; ++j) {
+    m_run[j] = -INFINITY;
+    l_run[j] = 0.f;
+  }
+  Pipe<R> pq;
+  const float scale2 = p.scale * kLog2e;
+
   for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1, k0 = it * kKeys;
-    tf32::cp_async_wait<0>();
-    __syncthreads();  // tile it landed; every warp is done with tile it - 1
-    if (it + 1 < n_tiles) copy_tile(k0 + kKeys, buf ^ 1);
-    tf32::cp_async_commit();
-    const float* tk = sk + buf * kKeys * D;
-    const float* tv = sv + buf * kKeys * D;
-    const float* tmask = smask + buf * kKeys;
-
-    // 1. over this warp's part of D
-    {
-      float acc_s[2][4] = {};
-      tf32::rows_dot<D, kSpan, kSpan / 16>(acc_s, sq, srow, tk, skey,
-                                           part * kSpan);
-      // c0..c3 of n-tile n: (row srow, key skey + 8n + 2t), (srow, + 1),
-      // (srow + 8, ..)
+    const int n0 = it * kPerTile;  // the tile's first chunk
+    // This thread's key rows 16w + g + 8r: the key bias, -inf past S.
+    float kb[2];
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int kj = skey + 8 * n + 2 * t;
-        *reinterpret_cast<float2*>(s_part + srow * kPitch + kj) =
-            make_float2(acc_s[n][0], acc_s[n][1]);
-        *reinterpret_cast<float2*>(s_part + (srow + 8) * kPitch + kj) =
-            make_float2(acc_s[n][2], acc_s[n][3]);
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int key = it * kTile + 16 * w + g + 8 * r;
+      kb[r] = key < S ? key_bias(p.mask, b, S, key) * kLog2e : -INFINITY;
     }
-    __syncthreads();  // the S parts are in shared memory
 
-    // 2. Keys past S take no part; masked keys take part at -1e30.
-    {
-      float s[kRowKeys];
-      float mx = -INFINITY;
+    // 1. This group's part of S^T = K Q^T: K's chunks grp (and grp + 2)
+    // of D, summed in the Pipe's partials (no product is added in the
+    // phase, so the first partial keeps its sum)
+    static_assert(NG == 1 || NG == 2, "a group takes one or two chunks");
+    issue<0, true>(pq, true, ga, take(n0 + grp), qd_big + grp * kChunkDesc,
+                   qd_small + grp * kChunkDesc, release(n0 + grp), pq.d[1]);
+    if (NG == 2)
+      issue<1, true>(pq, true, ga, take(n0 + grp + 2),
+                     qd_big + (grp + 2) * kChunkDesc,
+                     qd_small + (grp + 2) * kChunkDesc, release(n0 + grp + 2),
+                     pq.d[0]);
+    if (NG == 1) {
 #pragma unroll
-      for (int j = 0; j < kRowKeys; ++j) {
-        const int key = key0 + j;
-        float dot = 0.f;
-#pragma unroll
-        for (int p = 0; p < kParts; ++p) dot += ss[(p * kRows + row) * kPitch + key];
-        const float bias = tmask[key] > 0.f ? 0.f : kMaskBias;
-        s[j] = k0 + key < S ? dot * scale + bias : -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-#pragma unroll
-      for (int o = kRowThreads / 2; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_run, mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kRowKeys; ++j) {
-        const float p = k0 + key0 + j < S ? expf(s[j] - m_new) : 0.f;
-        sp[row * kPitch + key0 + j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int o = kRowThreads / 2; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      const float alpha = expf(m_run - m_new);
-      l_run = l_run * alpha + psum;
-      m_run = m_new;
-      if (threadIdx.x % kRowThreads == 0) salpha[row] = alpha;
+      for (int i = 0; i < R / 2; ++i) pq.d[1][i] = 0.f;
     }
-    __syncthreads();  // P and alpha are in shared memory
+    drain<NG - 1>(pq, pq.d[NG == 2 ? 0 : 1]);
+    const float(&sc)[R / 2] = pq.d[NG == 2 ? 0 : 1];
 
-    // 3. K-step j covers keys 8j .. 8j + 7: k = t is key 8j + 2t and
-    // k = t + 4 is key 8j + 2t + 1, in A (a float2 of the P rows) and in B
-    // (rows 8j + 2t, 8j + 2t + 1 of V) alike.
-    {
-      tf32::FragB fv[kSteps][NT];
+    // 2. Each group takes the other's part of its own queries' scores.
+    float own[R / 4], oth[R / 4];
 #pragma unroll
-      for (int j = 0; j < kSteps; ++j) {
-        const int kj = 8 * j + 2 * t;
-        float lo[NT], hi[NT];
-        tf32::load_vec<NT>(lo, tv + tf32::swz<D>(kj, cb + NT * g));
-        tf32::load_vec<NT>(hi, tv + tf32::swz<D>(kj + 1, cb + NT * g));
+    for (int i2 = 0; i2 < I2; ++i2)
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          fv[j][n].set(0, lo[n]);
-          fv[j][n].set(1, hi[n]);
+      for (int e = 0; e < 4; ++e) {
+        const float lo = sc[4 * i2 + e], hi = sc[4 * (I2 + i2) + e];
+        own[4 * i2 + e] = grp ? hi : lo;
+        oth[4 * i2 + e] = grp ? lo : hi;
+      }
+    bar_wait(kBarSDone);  // both groups' products of the last tile are done
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+      tf32::sts(xchg(grp ^ 1, j), __float_as_uint(oth[j]));
+    bar_wait(kBarXReady);
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) own[j] += tf32::lds(xchg(grp, j));
+
+    // 3. The online softmax of the group's queries: each column's max over
+    // the warp's 16 keys (lanes g), then over the group's four warps
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+      own[j] = fmaf(own[j], scale2, kb[(j & 3) >> 1]);
+    float alpha[2 * I2];
+#pragma unroll
+    for (int i2 = 0; i2 < I2; ++i2)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float x = fmaxf(own[4 * i2 + j], own[4 * i2 + 2 + j]);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+        alpha[2 * i2 + j] = x;
+      }
+    if (g == 0)
+#pragma unroll
+      for (int i2 = 0; i2 < I2; ++i2)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          tf32::sts(my_red + 4 * (4 * (8 * i2 + 2 * t + j) + w),
+                    __float_as_uint(alpha[2 * i2 + j]));
+    group_sync(grp);  // the warps' maxima are in; the partials are read
+#pragma unroll
+    for (int i2 = 0; i2 < I2; ++i2)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float4 mw = tf32::lds4(my_red + 16 * (8 * i2 + 2 * t + j));
+        const float m = fmaxf(fmaxf(m_run[2 * i2 + j], fmaxf(mw.x, mw.y)),
+                              fmaxf(mw.z, mw.w));
+        alpha[2 * i2 + j] = ex2(m_run[2 * i2 + j] - m);
+        m_run[2 * i2 + j] = m;
+      }
+#pragma unroll
+    for (int i2 = 0; i2 < I2; ++i2)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = own[4 * i2 + e];
+        x = ex2(x - m_run[2 * i2 + (e & 1)]);
+        const uint32_t at = 4 * pds_at<R>(grp * I2 + i2, e, w, g, t);
+        uint32_t hi, lo;
+        tf32::split(x, hi, lo);
+        tf32::sts(p_big + at, hi);
+        tf32::sts(p_small + at, lo);
+      }
+#pragma unroll
+    for (int i2 = 0; i2 < I2; ++i2)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        l_run[2 * i2 + j] = fmaf(l_run[2 * i2 + j], alpha[2 * i2 + j],
+                                 own[4 * i2 + j] + own[4 * i2 + 2 + j]);
+        if (w == 0 && g == 0)
+          tf32::sts(cols + 4 * (grp * HC + 8 * i2 + 2 * t + j),
+                    __float_as_uint(alpha[2 * i2 + j]));
+      }
+    tf32::fence_proxy_async();
+    bar_wait(kBarPReady);  // P and alpha of every query are in
+
+    // 4. O^T = alpha O^T + V^T P^T: V's chunks 2jj + grp, m-tiles of D
+#pragma unroll
+    for (int i = 0; i < R / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 a2 = tf32::lds2(cols + 4 * (8 * i + 2 * t));
+        const float a = j ? a2.y : a2.x;
+#pragma unroll
+        for (int jj = 0; jj < NG; ++jj) {
+          acc[jj][4 * i + j] *= a;
+          acc[jj][4 * i + 2 + j] *= a;
         }
       }
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int r = 16 * m + g;
-        const float a_lo = salpha[r], a_hi = salpha[r + 8];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          acc[m][n][0] *= a_lo; acc[m][n][1] *= a_lo;
-          acc[m][n][2] *= a_hi; acc[m][n][3] *= a_hi;
-        }
-        tf32::FragA fp[kSteps];
-#pragma unroll
-        for (int j = 0; j < kSteps; ++j) {
-          const int kj = 8 * j + 2 * t;
-          const float2 p_lo = *reinterpret_cast<const float2*>(sp + r * kPitch + kj);
-          const float2 p_hi = *reinterpret_cast<const float2*>(sp + (r + 8) * kPitch + kj);
-          fp[j].set(0, p_lo.x); fp[j].set(1, p_hi.x);
-          fp[j].set(2, p_lo.y); fp[j].set(3, p_hi.y);
-        }
-        tf32::mma3<NT, kSteps>(acc[m], fp, fv);
-      }
+    for (int jj = 0; jj < NG; jj += 2) {
+      const int n = n0 + NC + 2 * jj + grp;
+      issue<0, false>(pq, jj == 0, ga, take(n), pd_big, pd_small, release(n),
+                      acc[jj > 0 ? jj - 1 : 0]);
+      if (jj + 1 < NG)
+        issue<1, false>(pq, false, ga, take(n + 2), pd_big, pd_small,
+                        release(n + 2), acc[jj]);
     }
+    if (NG % 2) drain<0>(pq, acc[NG - 1]);
+    else drain<1>(pq, acc[NG - 1]);
   }
 
-  if (threadIdx.x % kRowThreads == 0) {
-    const float l = fmaxf(l_run, 1e-30f);
-    sl[row] = l;
-    if (q0 + row < S) lse[((long)b * H + h) * S + q0 + row] = m_run + logf(l);
-  }
-  __syncthreads();  // the row sums are in shared memory
-
-  // c0..c3 of (m, n): (row 16m + g, column cb + NT (2t) + n), (.., cb +
-  // NT (2t + 1) + n), (row 16m + g + 8, ..): NT consecutive columns each
+  // l of the group's queries: the shares of the warp's lanes g, then of
+  // the group's four warps; then every query's through `cols`
+  bar_wait(kBarSDone);  // every thread has read the last tile's alpha
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int j = 0; j < 2 * I2; ++j)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 16 * m + g + 8 * i, s = q0 + r;
-      if (s >= S) continue;
-      const float inv = 1.f / sl[r];
-      float* orow = out + (((long)b * S + s) * H + h) * D + cb + 2 * NT * t;
+    for (int o = 4; o < 32; o <<= 1)
+      l_run[j] += __shfl_xor_sync(0xffffffffu, l_run[j], o);
+  if (g == 0)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float x[NT];
+    for (int i2 = 0; i2 < I2; ++i2)
 #pragma unroll
-        for (int n = 0; n < NT; ++n) x[n] = acc[m][n][2 * i + e] * inv;
-        tf32::store_vec<NT>(orow + NT * e, x);
+      for (int j = 0; j < 2; ++j)
+        tf32::sts(my_red + 4 * (4 * (8 * i2 + 2 * t + j) + w),
+                  __float_as_uint(l_run[2 * i2 + j]));
+  group_sync(grp);
+  const long bh = (long)b * p.H + h;
+#pragma unroll
+  for (int i2 = 0; i2 < I2; ++i2)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = grp * HC + 8 * i2 + 2 * t + j;
+      const float4 lw = tf32::lds4(my_red + 16 * (8 * i2 + 2 * t + j));
+      float l = ((lw.x + lw.y) + lw.z) + lw.w;
+      l = fmaxf(l, 1e-30f);
+      if (w == 0 && g == 0) {
+        tf32::sts(cols + 4 * col, __float_as_uint(l));
+        if (q0 + col < S)
+          p.lse[bh * S + q0 + col] = m_run[2 * i2 + j] / kLog2e + logf(l);
       }
+    }
+  bar_wait(kBarXReady);  // every query's l is in
+  // O^T's row 16w + g + 8 (e / 2) of m-tile c = 2jj + grp is column 64c +
+  // 16w + g + 8 (e / 2) of D; its column 8i + 2t + e % 2 is query q0 + that.
+#pragma unroll
+  for (int i = 0; i < R / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int s = q0 + 8 * i + 2 * t + j;
+      const float inv = 1.f / tf32::lds(cols + 4 * (8 * i + 2 * t + j));
+      if (s < S)
+#pragma unroll
+        for (int jj = 0; jj < NG; ++jj)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            p.out[(((long)b * S + s) * p.H + h) * D + 64 * (2 * jj + grp) +
+                  16 * w + g + 8 * r] = acc[jj][4 * i + 2 * r + j] * inv;
     }
 }
 
-template <int D, int MT>
+template <int D, int R>
 int launch(const float* q, const float* k, const float* v, const float* mask,
            float* out, float* lse, int B, int S, int H, const long* qs,
            const long* ks, const long* vs, cudaStream_t stream) {
-  constexpr int kRows = FwdSmem<D, MT>::kRows;
-  const size_t smem = FwdSmem<D, MT>::kFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  CUtensorMap tk, tv;
+  int err = make_map(&tk, k, B, S, H, D, ks);
+  if (err == 0) err = make_map(&tv, v, B, S, H, D, vs);
+  if (err) return err;
+  Params p;
+  p.q = q;
+  for (int i = 0; i < 3; ++i) p.qs[i] = qs[i];
+  p.mask = mask;
+  p.out = out;
+  p.lse = lse;
+  p.S = S;
+  p.H = H;
+  p.scale = 1.f / sqrtf((float)D);
+  const size_t smem = Layout<D, R>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<D, MT><<<grid, kThreads, smem, stream>>>(
-      q, k, v, mask, out, lse, S, H, qs[0], qs[1], qs[2], ks[0], ks[1],
-      ks[2], vs[0], vs[1], vs[2], 1.f / sqrtf((float)D));
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + R - 1) / R, H, B);
+  flash_fwd_kernel<D, R><<<grid, kThreads, smem, stream>>>(tk, tv, p);
   return (int)cudaGetLastError();
 }
 
-// 16-query blocks where 32-query blocks would not cover the card's SMs.
+// 32-query blocks where 64-query blocks would not cover the card's SMs.
 template <int D>
 int launch_d(const float* q, const float* k, const float* v,
              const float* mask, float* out, float* lse, int B, int S, int H,
@@ -326,19 +487,43 @@ int launch_d(const float* q, const float* k, const float* v,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  if ((long)B * H * ((S + 31) / 32) < sms)
-    return launch<D, 1>(q, k, v, mask, out, lse, B, S, H, qs, ks, vs, stream);
-  return launch<D, 2>(q, k, v, mask, out, lse, B, S, H, qs, ks, vs, stream);
+  if ((long)B * H * ((S + 63) / 64) < sms)
+    return launch<D, 32>(q, k, v, mask, out, lse, B, S, H, qs, ks, vs, stream);
+  return launch<D, 64>(q, k, v, mask, out, lse, B, S, H, qs, ks, vs, stream);
+}
+
+template <int D, int R>
+void layout(long* out) {
+  constexpr long kSmSmem = 233472;  // an SM's shared memory, 228 KB
+  const long v[] = {R, kTile, Layout<D, R>::kStages,
+                    (long)Layout<D, R>::kBytes,
+                    kSmSmem / ((long)Layout<D, R>::kBytes + 1024)};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
 }
 
 }  // namespace
+
+// The tiling at head width d and rows queries a block (32 or 64):
+// out[0..4] = queries a block owns, keys per tile, TMA stages, dynamic
+// shared memory in bytes and blocks an SM holds by shared memory (each
+// block also reserves 1 KB). Returns cudaErrorInvalidValue for a d other
+// than 128 or 256 or other rows.
+extern "C" int avsum_flash_fwd_layout(int d, int rows, long* out) {
+  if (d == 128 && rows == 32) layout<128, 32>(out);
+  else if (d == 128 && rows == 64) layout<128, 64>(out);
+  else if (d == 256 && rows == 32) layout<256, 32>(out);
+  else if (d == 256 && rows == 64) layout<256, 64>(out);
+  else return (int)cudaErrorInvalidValue;
+  return 0;
+}
 
 // q, k, v: float32 [B, S, H, D] with element strides {b, s, h} in
 // q_strides / k_strides / v_strides (multiples of 4, 16-byte aligned
 // bases) and unit stride on D; mask: float32 [B, S] contiguous (> 0 =
 // valid key) or null; out: [B, S, H, D] contiguous; lse: [B, H, S]. D
-// must be 128 or 256 (returns cudaErrorInvalidValue otherwise). Returns
-// cudaGetLastError().
+// must be 128 or 256 (returns cudaErrorInvalidValue otherwise). Returns 0
+// or a CUDA error code: that of a tensor map the driver refused, of the
+// shared-memory opt-in, or cudaGetLastError() after the launch.
 extern "C" int avsum_flash_fwd(const void* q, const void* k, const void* v,
                                const void* mask, void* out, void* lse, int B,
                                int S, int H, int D, const long* q_strides,

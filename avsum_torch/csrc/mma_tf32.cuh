@@ -1,8 +1,8 @@
 // Tensor-core helpers shared by the port's kernels: float32 products on
-// Hopper's TF32 tensor cores at float32-level accuracy, by mma.sync (one
-// warp; K2) or wgmma (a warpgroup of four; K1, B3, B4), the cp.async
-// copies that feed K1 and K2, and the mbarriers and TMA loads that feed
-// B3 and B4.
+// Hopper's TF32 tensor cores at float32-level accuracy by wgmma (a
+// warpgroup of four warps; K1, K2, B3, B4), the cp.async copies that feed
+// K1, and the mbarriers and TMA loads that feed K2, B3 and B4
+// (flash_tiles.cuh).
 //
 // 3xTF32. TF32 keeps 10 of float32's 23 mantissa bits, about three
 // decimal digits. Each operand x is split as x = big + small, big =
@@ -10,26 +10,23 @@
 // a * b is then summed as a_small * b_big + a_big * b_small + a_big * b_big
 // (small terms first). Only small * small, ~2^-22 of |a b|, is dropped,
 // and each short run of k-steps is summed from zero before it is added to
-// the accumulator in float32 (see mma3), so a dot product keeps float32's
-// accuracy. Three MMAs per product, at a third of the TF32 rate.
+// the accumulator in float32 (see wgmma3), so a dot product keeps
+// float32's accuracy. Three products each, at a third of the TF32 rate.
 //
-// The MMA reads a .tf32 operand from the top 19 bits of its register and
-// ignores the low 13, so a float32 with half a TF32 ulp (0x1000) added to
-// its bits is read as the nearest TF32 value (ties away from zero, as
-// cvt.rna): split() costs four integer and float instructions where two
-// cvt.rna.tf32.f32, which also check for Inf and NaN, cost seven. The
-// operands here are finite.
+// The tensor cores read a .tf32 operand from the top 19 bits of its
+// register and ignore the low 13, so a float32 with half a TF32 ulp
+// (0x1000) added to its bits is read as the nearest TF32 value (ties away
+// from zero, as cvt.rna): split() costs four integer and float
+// instructions where two cvt.rna.tf32.f32, which also check for Inf and
+// NaN, cost seven. The operands here are finite.
 //
-// The MMA is mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, one warp.
-// With g = lane / 4 and t = lane % 4 its fragments hold:
-//   A (16 x 8, row m, column k): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
-//                                a3 (g + 8, t + 4)
-//   B (8 x 8, row k, column n):  b0 (t, g), b1 (t + 4, g)
-//   C (16 x 8):                  c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
-//                                c3 (g + 8, 2t + 1)
+// A wgmma's A operand from registers is, in each warp, an m16n8k8 A
+// fragment: with g = lane / 4 and t = lane % 4 it holds (row m, column k)
+//   a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+// and its accumulator is N / 8 m16n8 C fragments, each
+//   c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
 // The contraction index k may be permuted freely as long as A and B agree,
-// which the kernels use to load two or four fragment values with one
-// vector load, or to take C fragments as A fragments without a shuffle.
+// which the kernels use to read two A values with one 8-byte load.
 
 #pragma once
 
@@ -59,68 +56,6 @@ __device__ __forceinline__ void split_trunc(float x, uint32_t& big,
   small = __float_as_uint(x - __uint_as_float(big));
 }
 
-// An A fragment (4 values) or a B fragment (2 values), split.
-template <int N>
-struct Frag {
-  uint32_t big[N], small[N];
-  __device__ __forceinline__ void set(int i, float x) {
-    split(x, big[i], small[i]);
-  }
-};
-using FragA = Frag<4>;
-using FragB = Frag<2>;
-
-// Not volatile: it has no side effect, so the compiler may schedule it.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a * b, from a zero accumulator.
-__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
-                                     const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
-// c[n] += sum over k < K of a[k] * b[k][n], for N tiles of one row of
-// tiles, at float32-level accuracy (3xTF32). The tensor cores round their
-// float32 sums toward zero, so an accumulator that takes MMA after MMA
-// drifts by up to an ulp of its own size a step, all one way (~1e-5 after
-// a few hundred). So the 3K products of a tile are summed from zero, at
-// the size of a K-step partial sum, and that sum is added to c by one
-// ordinary float32 add (round to nearest). Each pass runs over all N
-// tiles before the next, so consecutive MMAs are independent.
-template <int N, int K>
-__device__ __forceinline__ void mma3(float (*c)[4], const FragA* a,
-                                     const FragB (*b)[N]) {
-  float d[N][4];
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma0(d[n], a[0].small, b[0][n].big);
-#pragma unroll
-  for (int k = 1; k < K; ++k)
-#pragma unroll
-    for (int n = 0; n < N; ++n) mma(d[n], a[k].small, b[k][n].big);
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int n = 0; n < N; ++n) mma(d[n], a[k].big, b[k][n].small);
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int n = 0; n < N; ++n) mma(d[n], a[k].big, b[k][n].big);
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] += d[n][e];
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -134,14 +69,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
-// 4-byte async copy global -> shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -152,97 +79,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Swizzled [rows][D] float32 tiles, as the flash-attention forward (K2) keeps
-// them in shared memory: each row's 16-byte chunks are XOR-permuted by a
-// function of the row's low three bits, so that a warp's float4 loads of
-// one column chunk from eight rows (the fragment loads over D, rows_dot),
-// and its loads of one to four columns from each of the rows 2t or
-// 2t + 1, t < 4, at eight columns or column chunks g (the fragment loads
-// over the rows), hit 32 distinct banks. D >= 32.
-__device__ __forceinline__ int swizzle(int r) { return (r & 6) ^ ((r & 1) << 2); }
-
-// Offset of element (r, c) of a swizzled [rows][D] tile.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((((c >> 2) ^ swizzle(r)) << 2) | (c & 3));
-}
-
-// cp.async rows [s0, s0 + ROWS) of a strided [S, D] head slice (row
-// stride in floats, a multiple of 4, and a 16-byte aligned base) into a
-// swizzled tile, by all kThreads threads of the block; rows past S become
-// zeros.
-template <int D, int ROWS, int kThreads>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          long row_stride, int s0, int S) {
-  for (int i = threadIdx.x; i < ROWS * D / 4; i += kThreads) {
-    const int r = i / (D / 4), c = 4 * (i % (D / 4)), s = s0 + r;
-    const bool in = s < S;
-    cp_async16(dst + swz<D>(r, c), src + (in ? s * row_stride + c : 0),
-               in ? 16 : 0);
-  }
-}
-
-// acc[n] += A rows (r, r + 8) . B rows (n0 + 8n + g), n = 0, 1, over the
-// SPAN columns from c0 (a multiple of 16) of two swizzled [rows][D]
-// tiles: one m-tile x two n-tiles of A B^T, as m16n8 C fragments. Over
-// each 16 columns d0 .. d0 + 15, lane (g, t) loads the float4 at d0 + 4t
-// of its A and B rows: k-step 0 takes columns d0 + 4t (k = t) and
-// d0 + 4t + 1 (k = t + 4), k-step 1 the other two; A and B agree, so the
-// sum is over all 16, one mma3.
-template <int D, int SPAN, int UNROLL>
-__device__ __forceinline__ void rows_dot(float (&acc)[2][4], const float* a,
-                                         int r, const float* b, int n0,
-                                         int c0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll (UNROLL)
-  for (int d0 = c0; d0 < c0 + SPAN; d0 += 16) {
-    const int c = d0 + 4 * t;
-    const float4 lo = *reinterpret_cast<const float4*>(a + swz<D>(r, c));
-    const float4 hi = *reinterpret_cast<const float4*>(a + swz<D>(r + 8, c));
-    FragA fa[2];
-    fa[0].set(0, lo.x); fa[0].set(1, hi.x); fa[0].set(2, lo.y); fa[0].set(3, hi.y);
-    fa[1].set(0, lo.z); fa[1].set(1, hi.z); fa[1].set(2, lo.w); fa[1].set(3, hi.w);
-    FragB fb[2][2];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      const float4 x = *reinterpret_cast<const float4*>(b + swz<D>(n0 + 8 * n + g, c));
-      fb[0][n].set(0, x.x); fb[0][n].set(1, x.y);
-      fb[1][n].set(0, x.z); fb[1][n].set(1, x.w);
-    }
-    mma3<2, 2>(acc, fa, fb);
-  }
-}
-
-// N (2 or 4) consecutive floats from shared memory, 8 or 16 bytes aligned.
-template <int N>
-__device__ __forceinline__ void load_vec(float (&out)[N], const float* p) {
-  static_assert(N == 2 || N == 4, "load_vec takes 2 or 4 floats");
-  if constexpr (N == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  } else {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x; out[1] = x.y;
-  }
-}
-
-// N consecutive floats to device memory, 8 or 16 bytes aligned.
-template <int N>
-__device__ __forceinline__ void store_vec(float* p, const float (&x)[N]) {
-  static_assert(N == 2 || N == 4, "store_vec takes 2 or 4 floats");
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-  }
-}
-
 // wgmma: Hopper's warpgroup MMA, m64nNk8 .f32.tf32.tf32 with A from
 // registers. The four warps of a warpgroup (warps 4i .. 4i + 3) multiply
 // their 64 rows, warp w holding rows 16 (w % 4) .. + 15 as an m16n8k8 A
 // fragment (above), by an 8 x N B operand that the hardware reads from
-// shared memory once for all four warps; mma.sync has every warp load its
-// own copy. The accumulator is N / 8 m16n8 C fragments, d[4i .. 4i + 3]
+// shared memory once for all four warps (mma.sync would have every warp
+// load its own copy). The accumulator is N / 8 m16n8 C fragments, d[4i .. 4i + 3]
 // for columns 8i .. 8i + 7. The call is asynchronous: it is fenced,
 // committed and waited for before d or a's registers are touched again
 // (wgmma3 does all three).
@@ -356,10 +198,13 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // d += sum over k < K of a[k] * B[k] in 3xTF32, a = big + small split
-// (the small terms of every k-step first): the wgmmas chain in d, whose
-// own sums round toward zero, so d should start from zero where that drift
-// matters (see mma3). B[k]'s big plane is at planes + 2k * PF floats, its
-// small plane PF further.
+// (the small terms of every k-step first). The tensor cores round their
+// float32 sums toward zero, so an accumulator that takes product after
+// product drifts by up to an ulp of its own size a step, all one way
+// (~1e-5 after a few hundred): where that matters, d starts from zero for
+// a short run of k-steps and is then added to the accumulator by one
+// ordinary float32 add (round to nearest). B[k]'s big plane is at
+// planes + 2k * PF floats, its small plane PF further.
 template <int PF, int R, int K>
 __device__ __forceinline__ void wgmma3(float (&d)[R],
                                        const uint32_t (&big)[K][4],
@@ -454,6 +299,14 @@ __device__ __forceinline__ float2 lds2(uint32_t addr) {
   float2 v;
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
                : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float4 lds4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
                : "r"(addr));
   return v;
 }

@@ -27,9 +27,11 @@ kernels do. Its gradient terms are still right when its cotangent is 0,
 which holds in the scorer: every attention output is multiplied by the
 mask there.
 
-This module owns B3's and B4's tiling (:func:`bwd_layout`): the library
-reports its own (``avsum_flash_bwd_layout``), and the backward wrappers
-check the two agree before their first launch at a head width.
+This module owns the kernels' tiling, K2's (:func:`fwd_layout`, with the
+block size the launcher picks, :func:`fwd_rows`) and B3's and B4's
+(:func:`bwd_layout`): the library reports its own
+(``avsum_flash_fwd_layout``, ``avsum_flash_bwd_layout``), and each wrapper
+checks the two agree before its first launch at a head width.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ BWD_BLOCK = 32  # B3 / B4: resident rows a block owns (keys, queries): wgmma N
 BWD_TILE = 64  # streamed rows per tile: wgmma's M
 BWD_CHUNK = 64  # columns of D per TMA chunk (two 128-byte boxes)
 BWD_STAGES = {128: 8, 256: 4}  # TMA ring stages by head width
+FWD_ROWS = (32, 64)  # K2: queries a block owns: wgmma N
+FWD_TILE = 64  # keys per streamed tile: wgmma's M
 SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may opt into
 SM_SMEM = 233_472  # an H100 SM's shared memory; a block also reserves 1 KB
 
@@ -116,6 +120,9 @@ def _fwd_lib() -> ctypes.CDLL:
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
         _STRIDES, _STRIDES, _STRIDES, _PTR,
     ]
+    lib.avsum_flash_fwd_layout.restype = _INT
+    lib.avsum_flash_fwd_layout.argtypes = [
+        _INT, _INT, ctypes.POINTER(ctypes.c_long)]
     return lib
 
 
@@ -134,6 +141,62 @@ def _bwd_lib() -> ctypes.CDLL:
     ]
     lib.avsum_flash_bwd_layout.restype = _INT
     lib.avsum_flash_bwd_layout.argtypes = [_INT, ctypes.POINTER(ctypes.c_long)]
+    return lib
+
+
+def fwd_layout(d: int, rows: int) -> dict:
+    """K2's tiling at head width ``d`` for blocks of ``rows`` queries, in
+    the order ``avsum_flash_fwd_layout`` reports it: queries a block owns,
+    keys per streamed tile, TMA stages of [FWD_TILE x BWD_CHUNK] floats (as
+    many as fit), dynamic shared memory in bytes (1 KB to align the ring,
+    the queries' big and small B planes, P's, the softmax's float a
+    warpgroup, warp and half of the queries, alpha's float a query, and a
+    stage's ring slot and two mbarriers) and blocks an SM holds by shared
+    memory."""
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attention kernels take D in {KERNEL_HEAD_DIMS}, "
+                         f"got {d}")
+    if rows not in FWD_ROWS:
+        raise ValueError(f"K2 takes blocks of {FWD_ROWS} queries, got {rows}")
+    fixed = (1024 + 4 * 2 * rows * d + 4 * 2 * rows * FWD_TILE
+             + 4 * 5 * rows)
+    stage = 4 * FWD_TILE * BWD_CHUNK + 8 + 8
+    stages = (SMEM_LIMIT - fixed) // stage
+    smem = fixed + stages * stage
+    layout = dict(block_rows=rows, tile_rows=FWD_TILE, stages=stages,
+                  smem=smem, blocks_per_sm=SM_SMEM // (smem + 1024))
+    assert smem <= SMEM_LIMIT, layout
+    return layout
+
+
+def fwd_rows(b: int, s: int, h: int, sms: int) -> int:
+    """The queries a K2 block owns at [b, s, h, D] on a card of ``sms``
+    SMs, as ``avsum_flash_fwd``'s launcher picks them: 64 where the
+    64-query blocks cover the SMs, else 32."""
+    return 64 if b * h * -(-s // 64) >= sms else 32
+
+
+def check_fwd_layout(reported, d: int, rows: int) -> None:
+    """Raises unless the library's tiling at ``d`` and ``rows`` (the 5
+    numbers of ``avsum_flash_fwd_layout``) is :func:`fwd_layout`'s."""
+    ours = fwd_layout(d, rows)
+    if list(reported) != list(ours.values()):
+        raise RuntimeError(
+            f"attention forward's layout {list(reported)} is not the "
+            f"wrapper's {ours} at D = {d}, {rows} queries a block: "
+            f"csrc/flash_fwd.cu and ops/attention.py disagree")
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_fwd_lib(d: int) -> ctypes.CDLL:
+    """The forward library, once its tiling at ``d`` is checked against
+    ours at both block sizes."""
+    lib = _fwd_lib()
+    for rows in FWD_ROWS:
+        out = (ctypes.c_long * 5)()
+        _raise_on(lib.avsum_flash_fwd_layout(d, rows, out),
+                  "attention forward layout")
+        check_fwd_layout(out, d, rows)
     return lib
 
 
@@ -240,7 +303,7 @@ def flash_attention_fwd(
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     mask, mask_ptr = _mask_ptr(mask)
     with torch.cuda.device(q.device):
-        err = _fwd_lib().avsum_flash_fwd(
+        err = _checked_fwd_lib(d).avsum_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
             out.data_ptr(), lse.data_ptr(), b, s, h, d,
             _strides(q), _strides(k), _strides(v),

@@ -24,9 +24,11 @@ raising on failure:
 6. each kernel against its plain PyTorch version on the card, float32
    with TF32 off, on fixed cases and at the shapes the runs gave it (K1
    also at 64 mel bands and on a quiet waveform; K2, B3 and B4 also at
-   the hour step's S = 7168; B3 and B4 also at S = 63, 64, 65, 127 and
-   129, around their 32-row blocks and 64-row tiles), with CUDA-event
-   times of both at those
+   the hour step's S = 7168; K2 also at the train run's S = 1024 and at
+   S = 63, 64, 65, 127 and 129 in both its block sizes, around its
+   64-key tiles, with its tiling held to the library's; B3 and B4 also
+   at S = 63, 64, 65, 127 and 129, around their 32-row blocks and 64-row
+   tiles), with CUDA-event times of both at those
    shapes, taken in turns over 5 rounds (median, min-max), beside each
    kernel's bound (:func:`bound`) and the time of the one PyTorch call
    that computes the same function (SDPA's efficient attention for K2,
@@ -429,21 +431,32 @@ def _flash_case(b: int, s: int, d: int, seed: int):
 
 
 def check_k2(path_seq: int) -> dict:
-    """K2 against its plain version on fixed cases and at the timed
-    shapes; times per launch of K2, its plain version and the library call
-    at the path's [1, S, 4, 256] and the hour step's [1, 7168, 4, D]."""
+    """K2 against its plain version on fixed cases (S around its 64-key
+    tile, in both block sizes) and at the timed shapes; its tiling against
+    the library's; times per launch of K2, its plain version and the
+    library call at the path's [1, S, 4, 256], the train run's
+    [1, 1024, 4, D] and the hour step's [1, 7168, 4, D]."""
     import torch
 
+    from avsum_torch.ops import attention as att
     from avsum_torch.ops.attention import (
         attention_fwd_plain,
         attention_plain,
         flash_attention_fwd,
     )
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in (128, 256):
+        att._checked_fwd_lib(d)
+        for rows in att.FWD_ROWS:
+            print(f"K2 layout at D={d}, {rows} queries a block: "
+                  f"{att.fwd_layout(d, rows)} (the library's)")
     worst = 0.0
     for d in (128, 256):
         for b, s in sorted({(2, 40), (1, 544), (2, 512), (2, 544), (1, 1024),
-                            (2, 1000), (1, path_seq), (2, path_seq)}):
+                            (2, 1000), (1, path_seq), (2, path_seq),
+                            (2, 63), (2, 64), (2, 65), (2, 127), (2, 129),
+                            (17, 127), (11, 129)}):
             qkv, mask, _ = _flash_case(b, s, d, seed=s + d)
             q, k, v = qkv.unbind(2)
             out, lse = flash_attention_fwd(q, k, v, mask)
@@ -453,9 +466,12 @@ def check_k2(path_seq: int) -> dict:
             torch.testing.assert_close(lse, ref_lse, **K2_TOL)
             err = (out - ref).abs().max().item()
             worst = max(worst, err)
-            print(f"K2 D={d} [{b}, {s}]: max|dout| {err:.3e}")
+            print(f"K2 D={d} [{b}, {s}] ({att.fwd_rows(b, s, 4, sms)}-query "
+                  f"blocks): max|dout| {err:.3e}, max|dlse| "
+                  f"{(lse - ref_lse).abs().max().item():.3e}")
     result = {}
-    for s, d, iters in ((path_seq, 256, 20), (7168, 256, 5), (7168, 128, 5)):
+    for s, d, iters in ((path_seq, 256, 20), (1024, 256, 20), (1024, 128, 20),
+                        (7168, 256, 5), (7168, 128, 5)):
         qkv, mask, _ = _flash_case(1, s, d, seed=7)
         q, k, v = qkv.unbind(2)
         out, lse = flash_attention_fwd(q, k, v, mask)
@@ -477,11 +493,13 @@ def check_k2(path_seq: int) -> dict:
             lib_note = f"no fused backend: {str(e).splitlines()[0]}"
         t = compare_ms(fns, iters=iters)
         bnd = attention_bound(1, s, 4, d, products=2, in_rows=3, out_rows=1)
-        library = fmt_ms(t["library"]) if "library" in t else "none"
-        print(f"K2 at [1, {s}, 4, {d}]: kernel {fmt_ms(t['kernel'])}, plain "
+        library = (f"{fmt_ms(t['library'])}, {t['library'][0] / t['kernel'][0]:.3f}"
+                   f"x the kernel's" if "library" in t else "none")
+        print(f"K2 at [1, {s}, 4, {d}] ({att.fwd_rows(1, s, 4, sms)}-query "
+              f"blocks): kernel {fmt_ms(t['kernel'])}, plain "
               f"{fmt_ms(t['plain'])}, library (SDPA, efficient attention) "
               f"{library} ({lib_note}), bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']})")
+              f"({bnd['bound_by']}; {bnd['bound_ms'] / t['kernel'][0]:.1%})")
         if not result:
             result = {"ms": t["kernel"][0], "plain_ms": t["plain"][0], **bnd,
                       "library_ms": t["library"][0] if "library" in t

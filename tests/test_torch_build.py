@@ -2,6 +2,8 @@
 follows its source and every ``csrc`` header the source includes, so an
 edited header is never served by a stale library. No nvcc is needed."""
 
+import re
+
 import pytest
 
 from avsum_torch import build
@@ -27,9 +29,20 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", build.KERNELS)
 def test_kernel_sources_hash_their_headers(name):
+    """The hashed bytes hold every csrc header the source reaches through
+    its includes (flash_fwd.cu and flash_bwd.cu reach mma_tf32.cuh through
+    flash_tiles.cuh), and no other."""
     src = build.CSRC_DIR / f"{name}.cu"
     data = build._source_bytes(src)
-    header = (build.CSRC_DIR / "mma_tf32.cuh").read_bytes()
     assert data.startswith(src.read_bytes())
-    assert (header in data) == (b'#include "mma_tf32.cuh"' in src.read_bytes())
+    reached, todo = set(), [src]
+    while todo:
+        for inc in re.findall(rb'#include "([^"]+)"', todo.pop().read_bytes()):
+            header = build.CSRC_DIR / inc.decode()
+            if header not in reached:
+                reached.add(header)
+                todo.append(header)
+    assert build.CSRC_DIR / "mma_tf32.cuh" in reached
+    for header in build.CSRC_DIR.glob("*.cuh"):
+        assert (header.read_bytes() in data) == (header in reached), header
     assert build.library_path(name).name.startswith(f"lib{name}-")

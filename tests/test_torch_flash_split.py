@@ -1,7 +1,8 @@
-"""The 3xTF32 arithmetic of B3 and B4 (``csrc/flash_bwd.cu``), emulated in
-NumPy on the CPU: can the split the kernels use meet the card's tolerance
-on the gradients (``chip_smoke.py``'s ``B34_TOL``, rtol = atol = 1e-4) at
-the hour step's S = 7168?
+"""The 3xTF32 arithmetic of B3 and B4 (``csrc/flash_bwd.cu``) and of K2
+(``csrc/flash_fwd.cu``), emulated in NumPy on the CPU: can the split the
+kernels use meet the card's tolerance on the gradients (``chip_smoke.py``'s
+``B34_TOL``, rtol = atol = 1e-4) and on the forward's output and LSE
+(``K2_TOL``, rtol = atol = 1e-5) at the hour step's S = 7168?
 
 The emulation follows the kernels: the A operand, read from every
 streamed tile, split in two instructions (``mma_tf32.cuh``'s
@@ -13,7 +14,9 @@ terms first) added exactly and rounded toward zero into float32, as the
 tensor cores accumulate; that run's sum then added to the float32
 accumulator rounding to nearest.
 Held against float64 on seeded [7168, 256] rows: the contraction over
-the sequence (dK^T = Q^T dS, dV^T = dO^T P) and over D (S = Q K^T)."""
+the sequence (dK^T = Q^T dS, dV^T = dO^T P) and over D (S = Q K^T); and
+the whole forward, tile by tile with its online softmax, against the
+softmax in float64."""
 
 import numpy as np
 import pytest
@@ -119,3 +122,95 @@ def test_runs_of_8_drift_less_than_one_long_run():
     short = np.abs(emulate(q, ds) - want).max()
     long = np.abs(emulate(q, ds, run=S // 8) - want).max()
     assert short < long
+
+
+# K2 (csrc/flash_fwd.cu), the forward: per 64-key tile, S^T = K Q^T over D
+# (A the K tile, B the query planes), one run of 8 k-steps a 64-column
+# chunk of D, the two warpgroups' chunks (even, odd) summed apart and then
+# added; the online softmax over the tile's keys with the running max and
+# sum; then O^T = alpha O^T + V^T P^T over the tile (A the V tile, B the P
+# planes), one run a 64-row m-tile of D
+K2_TOL = 1e-5  # chip_smoke.py: rtol = atol on the output and the LSE
+FWD_TILE = 64  # keys a tile: wgmma's M
+FWD_N = 64  # queries a block owns at long S: wgmma's N
+
+
+LOG2E = np.float32(np.log2(np.e))
+
+
+def emulate_forward(q, k, v, a_split="truncated", passes=3):
+    """q [N, D], k and v [S, D] float32 -> (out [N, D], lse [N]) as K2
+    computes them: every product by :func:`emulate`, the scores scaled by
+    scale * log2(e) in float32, the softmax in base 2 and the running sums
+    in float32, the accumulator multiplied by alpha and then the tile's
+    product added, each rounded; LSE = m / log2(e) + log(l)."""
+    n, d = q.shape
+    scale = np.float32(d ** -0.5) * LOG2E
+    m_run = np.full(n, -np.inf, np.float32)
+    l_run = np.zeros(n, np.float32)
+    acc = np.zeros((d, n), np.float32)
+    for k0 in range(0, k.shape[0], FWD_TILE):
+        kt, vt = k[k0:k0 + FWD_TILE], v[k0:k0 + FWD_TILE]
+        runs = [emulate(kt[:, c:c + 64].T, q[:, c:c + 64].T, a_split,
+                        passes=passes) for c in range(0, d, 64)]
+        s = (np.sum(runs[0::2], 0, dtype=np.float32)
+             + np.sum(runs[1::2], 0, dtype=np.float32)) * scale  # [keys, N]
+        m_new = np.maximum(m_run, s.max(0))
+        alpha = np.exp2(m_run - m_new)
+        p = np.exp2(s - m_new).astype(np.float32)
+        l_run = (l_run * alpha + p.sum(0, dtype=np.float32)).astype(np.float32)
+        m_run = m_new
+        part = emulate(vt, p, a_split, passes=passes)  # [D, N]
+        acc = (acc * alpha).astype(np.float32) + part
+    l_run = np.maximum(l_run, np.float32(1e-30))
+    return (acc / l_run).T, m_run / LOG2E + np.log(l_run)
+
+
+def _forward_case(seed, s=S, d=D, n=FWD_N):
+    """Unit-normal queries, keys and values, as chip_smoke.py's K2 cases."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((m, d)).astype(np.float32)
+               for m in (n, s, s))
+    logits = q.astype(np.float64) @ k.astype(np.float64).T * d ** -0.5
+    lse = np.log(np.exp(logits - logits.max(1, keepdims=True)).sum(1)) \
+        + logits.max(1)
+    out = np.exp(logits - lse[:, None]) @ v.astype(np.float64)
+    return (q, k, v), (out, lse)
+
+
+def _worst_k2(got, want):
+    """max over O and LSE of |got - want| / (atol + rtol |want|): <= 1
+    within K2_TOL."""
+    return max(float(np.max(np.abs(g - w) / (K2_TOL + K2_TOL * np.abs(w))))
+               for g, w in zip(got, want))
+
+
+def test_masked_lse_survives_base_2():
+    """A row with every key masked has m = -1e30 log2(e) in base 2, and
+    its LSE must come back as -1e30 exactly: B3 and B4 recompute its P as
+    exp(-1e30 - LSE), which a LSE below -1e30 by an ulp would make inf."""
+    m = np.float32(-1e30) * LOG2E
+    lse = m / LOG2E + np.float32(np.log(np.float32(7168)))
+    assert lse == np.float32(-1e30)
+
+
+@pytest.fixture(scope="module")
+def forward_case():
+    return _forward_case(7168)
+
+
+@pytest.mark.parametrize("a_split", ["truncated", "rounded"])
+def test_forward_meets_k2_tol_at_the_hour_step(forward_case, a_split):
+    """O and LSE over S = 7168 keys in 112 tiles at D = 256: the A operand
+    (the K and V tiles) split by ``split_trunc`` (the kernel's) or
+    ``split``, the query and P planes by ``split``."""
+    inputs, want = forward_case
+    worst = _worst_k2(emulate_forward(*inputs, a_split), want)
+    assert worst < 0.5, worst  # within half the tolerance
+
+
+def test_forward_one_tf32_pass_misses_k2_tol(forward_case):
+    """The forward's emulation has the power to fail: one TF32 product
+    misses K2's tolerance on the same inputs."""
+    inputs, want = forward_case
+    assert _worst_k2(emulate_forward(*inputs, passes=1), want) > 1.0

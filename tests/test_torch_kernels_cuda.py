@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions on the card: K1
 (log-mel, at 128 and 64 mel bands, and on a quiet waveform), K2
-(flash-attention forward, in its 16- and 32-query blocks), B3 (dK / dV)
+(flash-attention forward, in its 32- and 64-query blocks), B3 (dK / dV)
 and B4 (dQ) against their plain versions, and K2 -> B3 -> B4 through the
 autograd Function against autograd of the plain attention.
 
@@ -29,6 +29,7 @@ from avsum_torch.ops.attention import (
     flash_bwd_dkv_plain,
     flash_bwd_dq,
     flash_bwd_dq_plain,
+    fwd_rows,
 )
 from avsum_torch.ops.melspec import fused_log_mel, log_mel_plain
 
@@ -115,15 +116,27 @@ def _unaligned(t):
     return view
 
 
+# K2's cases: (B, S, the queries a block owns on a 132-SM H100)
+FWD_CASES = [(2, 40, 32), (1, 544, 32), (2, 544, 32), (1, 1024, 32),
+             (2, 1024, 32), (2, 2049, 64),
+             # S around the 64-key tile, in 32-query blocks
+             (2, 63, 32), (2, 64, 32), (2, 65, 32), (2, 127, 32), (2, 129, 32),
+             # and in 64-query blocks
+             (17, 127, 64), (11, 129, 64), (4, 1025, 64)]
+
+
 @pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("b,s", [(2, 40), (1, 544), (2, 544), (1, 1024),
-                                 (2, 1024), (2, 2049)])
-def test_flash_fwd_kernel_matches_plain(cuda, d, b, s):
+@pytest.mark.parametrize("b,s,rows", FWD_CASES)
+def test_flash_fwd_kernel_matches_plain(cuda, d, b, s, rows):
     """K2's output and LSE against its plain version: a partial tile
-    (S = 40), the scorer's S = 544 and 1024 with one batch row (16-query
-    blocks, fewer 32-query blocks than SMs) and two (32-query blocks), a
-    ragged multi-tile S; a padded tail, and with B = 2 a row with no valid
-    key (the uniform average)."""
+    (S = 40), the scorer's S = 544 and 1024 with one batch row and two
+    (32-query blocks: 64-query blocks would not cover the SMs), a ragged
+    multi-tile S (64-query blocks), S on and beside the 64-key tile's
+    edges in both block sizes; a padded tail, and with B = 2 a row with no
+    valid key (the uniform average)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert fwd_rows(b, s, 4, sms) == rows
     qkv, mask, _ = _bwd_case(cuda, b, s, d, seed=3 * s + d)
     q, k, v = qkv.unbind(2)
     before = flash_attention.launches
@@ -137,7 +150,7 @@ def test_flash_fwd_kernel_matches_plain(cuda, d, b, s):
 @pytest.mark.parametrize("d", [128, 256])
 def test_flash_fwd_kernel_reads_unaligned_views(cuda, d):
     """q, k, v as views that are not 16-byte aligned, which the wrapper
-    copies for the kernel's 16-byte loads."""
+    copies for the kernel's TMA and 16-byte loads."""
     qkv, mask, _ = _bwd_case(cuda, 2, 544, d, seed=d)
     q, k, v = (_unaligned(x) for x in qkv.unbind(2))
     out, lse = flash_attention_fwd(q, k, v, mask)
@@ -197,16 +210,31 @@ def test_flash_bwd_dkv_kernel_matches_plain(cuda, d, s, layout):
 
 
 def test_flash_bwd_wgmmas_are_not_serialized(cuda):
-    """ptxas runs B3's and B4's wgmmas back to back: it serializes them
-    (note C7514, each waiting for the one before) when a loop keeps a
+    """ptxas runs K2's, B3's and B4's wgmmas back to back: it serializes
+    them (note C7514, each waiting for the one before) when a loop keeps a
     wgmma group in flight across its back edge."""
     from avsum_torch import build
     from avsum_torch.ops import attention
 
+    attention._fwd_lib()
     attention._bwd_lib()
-    lib = build.library_path("flash_bwd")
-    log = lib.with_name(lib.name + ".log").read_text()
-    assert "C7514" not in log, log
+    for name in ("flash_fwd", "flash_bwd"):
+        lib = build.library_path(name)
+        log = lib.with_name(lib.name + ".log").read_text()
+        assert "C7514" not in log, log
+
+
+@pytest.mark.parametrize("rows", [32, 64])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_fwd_layout_matches_the_library(cuda, d, rows):
+    """The library's K2 tiling is the wrapper's (fwd_layout), at both
+    block sizes."""
+    from avsum_torch.ops import attention
+
+    lib = attention._fwd_lib()
+    out = (ctypes.c_long * 5)()
+    assert lib.avsum_flash_fwd_layout(d, rows, out) == 0
+    attention.check_fwd_layout(out, d, rows)
 
 
 @pytest.mark.parametrize("d", [128, 256])
