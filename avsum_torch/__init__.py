@@ -17,7 +17,7 @@ splits and dataset parsers (``data/``).
 Layout (mirrors ``avsum_tpu``):
 
 - ``ops/``       spectral ops, the log-mel kernel (K1), flash attention:
-  forward (K2) and backward (B3 dK/dV, B4 dQ), YUV->RGB
+  forward (K2) and backward (dQ, dK, dV in one kernel), YUV->RGB
 - ``audio/``     VGGish and the 296-d audio front-end
 - ``vision/``    ResNet50, InceptionV3, the dual backbone and shot pooling
 - ``models/``    self-attention, BiLSTM, the attention encoder, the AVScorer

@@ -83,8 +83,7 @@ def _wrappers() -> dict:
 
     return {"melspec": melspec.fused_log_mel,
             "flash_fwd": attention.flash_attention,
-            "flash_bwd_dkv": attention.flash_bwd_dkv,
-            "flash_bwd_dq": attention.flash_bwd_dq}
+            "flash_bwd": attention.flash_bwd}
 
 
 def reset_launches() -> None:

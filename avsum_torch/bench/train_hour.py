@@ -4,7 +4,7 @@
 ``--hidden``, 4 heads, 2 layers, float32, lr 1e-4 with 5 warmup steps, on
 the JAX script's batch (``default_rng(0)``: visual, audio, targets, mask).
 
-- ``--mode chip``: one device, the flash kernels (K2 forward, B3 and B4
+- ``--mode chip``: one device, the flash kernels (K2 forward, the fused
   backward), with remat (``chip_remat_flash``) and without
   (``chip_norematerialize``), so the memory-for-FLOPs trade shows in
   ``hbm_peak_mib`` (``torch.cuda.max_memory_allocated`` after a reset).
@@ -38,7 +38,7 @@ from avsum_torch.bench import (
     reset_launches,
 )
 
-FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+FLASH = ("flash_fwd", "flash_bwd")
 
 
 def add_arguments(ap) -> None:

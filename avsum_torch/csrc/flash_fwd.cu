@@ -16,7 +16,7 @@
 // tile) land as zeros and take no part, so S needs no padding; masked
 // keys take part at a -1e30 bias, so a row whose keys are all masked
 // averages V uniformly over the S keys (the materialized softmax's
-// answer) and has LSE = -1e30 in float32, which B3 and B4 rely on.
+// answer) and has LSE = -1e30 in float32, which the backward relies on.
 //
 // What bounds it on an H100: arithmetic. 4 * S^2 * D flops per head (two
 // S x S x D products) against O(S * D) bytes; in 3xTF32 (three TF32
@@ -24,8 +24,8 @@
 // TFLOP/s that is at least 1.28 ms at [1, 7168, 4, 256], 0.64 ms at D =
 // 128, where q, k, v and out take 0.035 ms at 3.35 TB/s.
 //
-// Design: B4's (flash_bwd.cu) with the roles set for the forward, on the
-// machinery of flash_tiles.cuh. A block of two warpgroups (256 threads)
+// Design: on the machinery of flash_tiles.cuh (shared with the backward,
+// flash_bwd.cu). A block of two warpgroups (256 threads)
 // owns R queries of one (b, h): R = 64, or 32 where 64-query blocks would
 // not cover the card's SMs (the launcher's choice, below). The R queries
 // are the N of every product (wgmma m64nRk8 TF32 in the 3xTF32 split,
@@ -52,7 +52,7 @@
 //      running sum l (the shares are added once, at the end); alpha into
 //      a shared row. LSE = m / log2(e) + log(l): -1e30 log2(e) / log2(e)
 //      is -1e30 again in float32, so a row with every key masked keeps
-//      its LSE of -1e30 for B3 and B4.
+//      its LSE of -1e30 for the backward.
 //   4. O^T = alpha O^T + V^T P^T [D x R]: each group its half of D's 64-row
 //      m-tiles (A the V chunks by column, B the P planes), rescaled by
 //      every query's alpha in registers first; O^T stays in registers,
@@ -84,7 +84,7 @@
 // one block an SM. avsum_flash_fwd_layout reports this tiling; the wrapper
 // checks it against its own (fwd_layout) before its first launch at a D.
 //
-// As in B3 and B4 (flash_bwd.cu's note): each product of a chunk is 24
+// As in the backward (flash_bwd.cu's note): each product of a chunk is 24
 // wgmmas in two commit groups of 4 k-steps, the next group's A fragments
 // read while the group before runs, its sum started from zero and added to
 // the float32 accumulator once (8 k-steps a run); the phase loops are

@@ -1,10 +1,10 @@
 // The streamed-tile machinery of the flash-attention kernels on wgmma and
-// TMA, shared by the forward (K2, flash_fwd.cu) and the backward (B3 and
-// B4, flash_bwd.cu): the tensor maps of [B, S, H, D] views, the gather of
+// TMA, shared by the forward (K2, flash_fwd.cu) and the backward
+// (flash_bwd.cu): the tensor maps of [B, S, H, D] views, the gather of
 // wgmma A fragments from a landed TMA chunk, the products in flight over
 // a chunk, and the B planes a kernel writes itself (its resident rows, and
 // P or dS each tile). N is the wgmma N of a product: the resident rows
-// it multiplies, 32 (B3, B4; K2's smaller blocks) or 64 (K2).
+// it multiplies, 32 (K2's smaller blocks) or 64 (K2, the backward).
 //
 // A streamed tile is kTile = 64 rows (wgmma's M) of K, V, Q or dO; it
 // arrives in chunks of [64 rows x 64 columns of D] as two TMA boxes of
@@ -206,24 +206,6 @@ template <int N>
 __device__ __forceinline__ int pds_at(int i, int e, int w, int g, int t) {
   return plane_at<N>(2 * w + (e >> 1), 8 * i + 2 * t + (e & 1),
                      (g >> 1) | ((g & 1) << 2));
-}
-
-// v split into the B planes at shared addresses big, small.
-template <int N>
-__device__ __forceinline__ void store_planes(uint32_t big, uint32_t small,
-                                             const float (&v)[N / 2], int w,
-                                             int g, int t) {
-#pragma unroll
-  for (int i = 0; i < N / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const uint32_t at = 4 * pds_at<N>(i, e, w, g, t);
-      uint32_t hi, lo;
-      tf32::split(v[4 * i + e], hi, lo);
-      tf32::sts(big + at, hi);
-      tf32::sts(small + at, lo);
-    }
-  tf32::fence_proxy_async();
 }
 
 // Resident rows r0 .. r0 + N - 1 of a [S, D] head slice (row stride ss

@@ -1,8 +1,9 @@
 // Tensor-core helpers shared by the port's kernels: float32 products on
 // Hopper's TF32 tensor cores at float32-level accuracy by wgmma (a
-// warpgroup of four warps; K1, K2, B3, B4), the cp.async copies that feed
-// K1, and the mbarriers and TMA loads that feed K2, B3 and B4
-// (flash_tiles.cuh).
+// warpgroup of four warps; K1, K2 and the backward), the cp.async copies
+// that feed K1, the mbarriers and TMA loads that feed K2 and the backward
+// (flash_tiles.cuh), and the thread-block cluster's shared memory and the
+// TMA reductions that the backward adds.
 //
 // 3xTF32. TF32 keeps 10 of float32's 23 mantissa bits, about three
 // decimal digits. Each operand x is split as x = big + small, big =
@@ -47,9 +48,10 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
 // x -> (big, small) in two instructions, for operands read once: big =
 // x truncated to TF32, small = x - big exactly, which the MMA reads
 // truncated too. Each part loses less than 2^-10 of itself, so a product
-// keeps ~2^-20 of |a b| against split()'s ~2^-22; B3 and B4 take it for
-// the A fragments they read from every streamed tile
-// (tests/test_torch_flash_split.py holds it to their tolerance).
+// keeps ~2^-20 of |a b| against split()'s ~2^-22; the flash kernels take
+// it for the A fragments they read from every streamed tile, and the
+// backward for dS in registers (tests/test_torch_flash_split.py holds it to
+// their tolerance).
 __device__ __forceinline__ void split_trunc(float x, uint32_t& big,
                                             uint32_t& small) {
   big = __float_as_uint(x) & 0xFFFFE000u;
@@ -313,6 +315,110 @@ __device__ __forceinline__ float4 lds4(uint32_t addr) {
 
 __device__ __forceinline__ void sts(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y)
+               : "memory");
+}
+
+__device__ __forceinline__ void sts4(uint32_t addr, float x, float y, float z,
+                                     float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
+}
+
+// Thread-block clusters. A CTA reaches the shared memory of the other CTAs
+// of its cluster through the shared::cluster window: mapa turns a shared
+// address of this CTA into that of the same place in the CTA of rank
+// `rank` (this one included).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// One arrival on an mbarrier at a shared::cluster address, a signal with
+// the arrive's default (CTA-scope) release: one that releases at cluster
+// scope fences like fence.acq_rel.cluster, and costs as much
+// (flash_bwd.cu's note). The data between CTAs moves by
+// bulk_copy_cluster, which its destination's mbarrier tracks.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait for a barrier whose arrivals come from the cluster: acquires
+// what they released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "%1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Every thread of every CTA of the cluster; orders all their shared-memory
+// accesses before and after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// Bulk copy (the TMA engine) of `bytes` (a multiple of 16) from this CTA's
+// shared memory at src to dst, a shared::cluster address (another CTA's
+// shared memory), counted as transaction bytes on the mbarrier at the
+// shared::cluster address bar (the destination CTA's).
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src,
+                                                  int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// TMA reduction: the box at shared address src added in float32 to the box
+// of the tensor map at coordinates (c0, c1, c2, c3); elements outside the
+// tensor are skipped. Committed as a bulk group; bulk_wait_read<N> waits
+// until at most N groups still read shared memory, bulk_wait<N> until at
+// most N are incomplete.
+__device__ __forceinline__ void tma_reduce_add_4d(const void* map,
+                                                  uint32_t src, int c0, int c1,
+                                                  int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace tf32

@@ -9,8 +9,8 @@ Self-attention takes the JAX module's dispatch, in its order:
 1. with the kernel enabled (``use_kernel``, resolved from
    ``model.use_pallas`` by :func:`kernel_enabled`), a sequence of a
    concrete length of at least ``FLASH_MIN_SEQ`` positions goes through
-   :func:`avsum_torch.ops.attention.flash_attention` (kernels K2, B3 and
-   B4 on a CUDA tensor; its plain version on a CPU tensor);
+   :func:`avsum_torch.ops.attention.flash_attention` (kernel K2 and the
+   backward kernel on a CUDA tensor; its plain version on a CPU tensor);
 2. else, with ``chunk_size`` > 0, :func:`avsum_torch.ops.chunked.chunked_attention`
    (float32 q, k, v and probabilities; the scorer gives a chunk size to
    its fusion attention only, as the JAX scorer does);

@@ -2,5 +2,5 @@
 
 - :func:`avsum_torch.ops.melspec.fused_log_mel` (K1, ``csrc/melspec.cu``)
 - :func:`avsum_torch.ops.attention.flash_attention`: forward K2
-  (``csrc/flash_fwd.cu``), backward B3 and B4 (``csrc/flash_bwd.cu``)
+  (``csrc/flash_fwd.cu``), the fused backward (``csrc/flash_bwd.cu``)
 """

@@ -1,5 +1,5 @@
 """Flash attention, forward and backward: kernel K2 (``csrc/flash_fwd.cu``)
-and kernels B3 / B4 (``csrc/flash_bwd.cu``), with their plain version.
+and the fused backward (``csrc/flash_bwd.cu``), with their plain versions.
 
 Counterpart of ``avsum_tpu/ops/attention.py::flash_attention`` and its
 custom VJP (``_flash_core``): softmax(Q K^T / sqrt(D) + key-mask bias) V
@@ -11,24 +11,27 @@ fused qkv projection, and need no padding of S.
 :func:`flash_attention` runs :class:`FlashAttention` for CUDA tensors: its
 forward launches K2 and saves the LSE, its backward computes
 delta = rowsum(dO * O) in torch (as the TPU code does outside its
-kernels), then launches B3 (dK, dV) and B4 (dQ). For CPU tensors it runs
-:func:`attention_plain`, differentiated by ordinary autograd. Each
-kernel's wrapper (``flash_attention_fwd``, ``flash_bwd_dkv``,
-``flash_bwd_dq``) launches it for CUDA tensors and runs its plain version
-(``attention_fwd_plain``, ``flash_bwd_dkv_plain``, ``flash_bwd_dq_plain``:
-the same recomputation, materialized) for CPU tensors; none falls back
-from one to the other. Each counts its launches:
-``flash_attention.launches`` (K2), ``flash_bwd_dkv.launches`` (B3) and
-``flash_bwd_dq.launches`` (B4).
+kernels), then launches the backward kernel once for dQ, dK and dV. For
+CPU tensors it runs :func:`attention_plain`, differentiated by ordinary
+autograd. Each kernel's wrapper (``flash_attention_fwd``, ``flash_bwd``)
+launches it for CUDA tensors and runs its plain version
+(``attention_fwd_plain``, ``flash_bwd_plain``: the same recomputation,
+materialized) for CPU tensors; none falls back from one to the other.
+Each counts its launches: ``flash_attention.launches`` (K2) and
+``flash_bwd.launches`` (the backward).
+
+The backward kernel sums dQ over its key blocks by float32 reductions in
+the order the blocks run, so its dQ is not bitwise the same from run to
+run (as the pooling's ``index_add_``).
 
 A query row whose keys are all masked has LSE = -1e30, so the backward
-kernels recompute its probabilities as 1 rather than 1/S, as the TPU
+kernel recomputes its probabilities as 1 rather than 1/S, as the TPU
 kernels do. Its gradient terms are still right when its cotangent is 0,
 which holds in the scorer: every attention output is multiplied by the
 mask there.
 
 This module owns the kernels' tiling, K2's (:func:`fwd_layout`, with the
-block size the launcher picks, :func:`fwd_rows`) and B3's and B4's
+block size the launcher picks, :func:`fwd_rows`) and the backward's
 (:func:`bwd_layout`): the library reports its own
 (``avsum_flash_fwd_layout``, ``avsum_flash_bwd_layout``), and each wrapper
 checks the two agree before its first launch at a head width.
@@ -46,10 +49,12 @@ from avsum_torch.build import load_kernel
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128, 256)
-BWD_BLOCK = 32  # B3 / B4: resident rows a block owns (keys, queries): wgmma N
+BWD_KEYS = 64  # the backward: resident keys a cluster owns, wgmma's N
 BWD_TILE = 64  # streamed rows per tile: wgmma's M
-BWD_CHUNK = 64  # columns of D per TMA chunk (two 128-byte boxes)
-BWD_STAGES = {128: 8, 256: 4}  # TMA ring stages by head width
+BWD_CHUNK = 64  # columns of D per TMA chunk (two 128-byte boxes), a CTA's
+BWD_STAGES = 4  # TMA ring stages: a tile's Q and dO chunks by turns
+BWD_PLANES = 10  # K, K^T, V, P and dS, big and small
+BWD_BARRIERS = 2 * BWD_STAGES + 8  # full, empty; the exchange's 4 a group
 FWD_ROWS = (32, 64)  # K2: queries a block owns: wgmma N
 FWD_TILE = 64  # keys per streamed tile: wgmma's M
 SMEM_LIMIT = 232_448  # dynamic shared memory a Hopper block may opt into
@@ -86,25 +91,17 @@ def attention_fwd_plain(q, k, v, mask=None):
     return out, torch.logsumexp(logits, dim=-1)
 
 
-def _bwd_plain(q, k, v, do, mask, lse, delta):
-    """P recomputed as exp(S - LSE) and dS = P (dO V^T - delta), as the
-    backward kernels compute them: -> (P, dS) [B, H, S, S]."""
+def flash_bwd_plain(q, k, v, do, mask, lse, delta):
+    """The backward kernel's plain version, the same recomputation
+    materialized: P = exp(S - LSE), dS = P (dO V^T - delta), then
+    -> (dq, dk, dv) [B, S, H, D]."""
+    scale = q.shape[-1] ** -0.5
     p = torch.exp(_logits(q, k, mask) - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    return p, p * (dp - delta[..., None])
-
-
-def flash_bwd_dkv_plain(q, k, v, do, mask, lse, delta):
-    """B3's plain version: -> (dk, dv) [B, S, H, D]."""
-    p, ds = _bwd_plain(q, k, v, do, mask, lse, delta)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * q.shape[-1] ** -0.5
-    return dk, torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-
-
-def flash_bwd_dq_plain(q, k, v, do, mask, lse, delta):
-    """B4's plain version: -> dq [B, S, H, D]."""
-    _, ds = _bwd_plain(q, k, v, do, mask, lse, delta)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * q.shape[-1] ** -0.5
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq, dk, torch.einsum("bhqk,bqhd->bkhd", p, do.float())
 
 
 _PTR = ctypes.c_void_p
@@ -129,18 +126,16 @@ def _fwd_lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _bwd_lib() -> ctypes.CDLL:
     lib = load_kernel("flash_bwd")
-    lib.avsum_flash_bwd_dkv.restype = _INT
-    lib.avsum_flash_bwd_dkv.argtypes = [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-        _INT, _INT, _INT, _INT, _STRIDES, _STRIDES, _STRIDES, _STRIDES, _PTR,
-    ]
-    lib.avsum_flash_bwd_dq.restype = _INT
-    lib.avsum_flash_bwd_dq.argtypes = [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+    lib.avsum_flash_bwd.restype = _INT
+    lib.avsum_flash_bwd.argtypes = [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
         _INT, _INT, _INT, _INT, _STRIDES, _STRIDES, _STRIDES, _STRIDES, _PTR,
     ]
     lib.avsum_flash_bwd_layout.restype = _INT
     lib.avsum_flash_bwd_layout.argtypes = [_INT, ctypes.POINTER(ctypes.c_long)]
+    lib.avsum_flash_bwd_max_clusters.restype = _INT
+    lib.avsum_flash_bwd_max_clusters.argtypes = [
+        _INT, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -201,27 +196,28 @@ def _checked_fwd_lib(d: int) -> ctypes.CDLL:
 
 
 def bwd_layout(d: int) -> dict:
-    """B3's and B4's tiling at head width ``d``, in the order
-    ``avsum_flash_bwd_layout`` reports it: resident rows a block owns,
-    streamed rows per tile, TMA stages of [BWD_TILE x BWD_CHUNK] floats,
-    dynamic shared memory in bytes (1 KB to align the ring, the ring, the
-    two resident tensors' big and small B planes, P's and dS's, two
-    mbarriers a stage) and blocks an SM holds by shared memory."""
-    if d not in BWD_STAGES:
+    """The backward's tiling at head width ``d``, in the order
+    ``avsum_flash_bwd_layout`` reports it: keys a cluster owns, CTAs a
+    cluster (one a 64-column chunk of D), streamed rows per tile, TMA
+    stages of [BWD_TILE x BWD_CHUNK] floats, a CTA's dynamic shared memory
+    in bytes (1 KB to align the ring, the ring, ten [64 x 64] planes: K,
+    K^T, V, P and dS, big and small; the ring's two mbarriers a stage and
+    each group's four for the cluster's exchange) and CTAs an SM holds by
+    shared memory."""
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention kernels take D in {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
-    stages = BWD_STAGES[d]
-    smem = (1024 + 4 * stages * BWD_TILE * BWD_CHUNK
-            + 4 * 2 * 2 * BWD_BLOCK * d + 4 * 2 * 2 * BWD_BLOCK * BWD_TILE
-            + 16 * stages)
-    layout = dict(block_rows=BWD_BLOCK, tile_rows=BWD_TILE, stages=stages,
-                  smem=smem, blocks_per_sm=SM_SMEM // (smem + 1024))
+    smem = (1024 + 4 * BWD_STAGES * BWD_TILE * BWD_CHUNK
+            + 4 * BWD_PLANES * BWD_KEYS * BWD_CHUNK + 8 * BWD_BARRIERS)
+    layout = dict(block_keys=BWD_KEYS, cluster=d // BWD_CHUNK,
+                  tile_rows=BWD_TILE, stages=BWD_STAGES, smem=smem,
+                  blocks_per_sm=SM_SMEM // (smem + 1024))
     assert smem <= SMEM_LIMIT, layout
     return layout
 
 
 def check_bwd_layout(reported, d: int) -> None:
-    """Raises unless the library's tiling at ``d`` (the 5 numbers of
+    """Raises unless the library's tiling at ``d`` (the 6 numbers of
     ``avsum_flash_bwd_layout``) is :func:`bwd_layout`'s."""
     ours = bwd_layout(d)
     if list(reported) != list(ours.values()):
@@ -236,10 +232,20 @@ def _checked_bwd_lib(d: int) -> ctypes.CDLL:
     """The backward library, once its tiling at ``d`` is checked against
     ours."""
     lib = _bwd_lib()
-    out = (ctypes.c_long * 5)()
+    out = (ctypes.c_long * 6)()
     _raise_on(lib.avsum_flash_bwd_layout(d, out), "attention backward layout")
     check_bwd_layout(out, d)
     return lib
+
+
+def bwd_max_clusters(d: int) -> int:
+    """How many of the backward's clusters at head width ``d`` the current
+    card runs at once (``cudaOccupancyMaxActiveClusters``): a cluster needs
+    ``d / 64`` free SMs of one GPC."""
+    out = ctypes.c_int()
+    _raise_on(_checked_bwd_lib(d).avsum_flash_bwd_max_clusters(
+        d, ctypes.byref(out)), "attention backward occupancy")
+    return out.value
 
 
 def _check(mask, *named) -> None:
@@ -342,43 +348,30 @@ def _vec4(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def flash_bwd_dkv(q, k, v, do, mask, lse, delta):
-    """B3: -> (dk, dv) [B, S, H, D] f32 contiguous; ``do`` is read through
-    its strides, ``lse`` and ``delta`` are [B, H, S]. The plain version for
-    CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, mask, lse, delta)
-    q, k, v, do = map(_vec4, (q, k, v, do))
-    mask, lead, tail = _bwd_args(q, k, v, do, mask, lse, delta)
-    dk = torch.empty(q.shape, device=q.device, dtype=torch.float32)
-    dv = torch.empty_like(dk)
-    with torch.cuda.device(q.device):
-        err = _checked_bwd_lib(q.shape[-1]).avsum_flash_bwd_dkv(
-            *lead, dk.data_ptr(), dv.data_ptr(), *tail)
-    _raise_on(err, "attention dK/dV")
-    flash_bwd_dkv.launches += 1
-    return dk, dv
-
-
-def flash_bwd_dq(q, k, v, do, mask, lse, delta):
-    """B4: -> dq [B, S, H, D] f32 contiguous; the plain version for CPU
+def flash_bwd(q, k, v, do, mask, lse, delta):
+    """The backward kernel: -> (dq, dk, dv) [B, S, H, D] f32 contiguous;
+    ``do`` is read through its strides, ``lse`` and ``delta`` are
+    [B, H, S]. dq is zeroed here, on the launch's stream, and the kernel
+    adds each key block's share to it. The plain version for CPU
     tensors."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, mask, lse, delta)
+        return flash_bwd_plain(q, k, v, do, mask, lse, delta)
     q, k, v, do = map(_vec4, (q, k, v, do))
     mask, lead, tail = _bwd_args(q, k, v, do, mask, lse, delta)
-    dq = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    dq = torch.zeros(q.shape, device=q.device, dtype=torch.float32)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
     with torch.cuda.device(q.device):
-        err = _checked_bwd_lib(q.shape[-1]).avsum_flash_bwd_dq(
-            *lead, dq.data_ptr(), *tail)
-    _raise_on(err, "attention dQ")
-    flash_bwd_dq.launches += 1
-    return dq
+        err = _checked_bwd_lib(q.shape[-1]).avsum_flash_bwd(
+            *lead, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail)
+    _raise_on(err, "attention backward")
+    flash_bwd.launches += 1
+    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """K2 forward, B3 + B4 backward; no gradient for the mask. On CPU
-    tensors it runs the three plain versions (the CPU tests use that)."""
+    """K2 forward, the fused kernel backward; no gradient for the mask. On
+    CPU tensors it runs the two plain versions (the CPU tests use that)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask):
@@ -393,8 +386,7 @@ class FlashAttention(torch.autograd.Function):
         delta = (do * out).sum(-1).transpose(1, 2).contiguous()
         if do.stride(-1) != 1:
             do = do.contiguous()
-        dk, dv = flash_bwd_dkv(q, k, v, do, mask, lse, delta)
-        dq = flash_bwd_dq(q, k, v, do, mask, lse, delta)
+        dq, dk, dv = flash_bwd(q, k, v, do, mask, lse, delta)
         return dq, dk, dv, None
 
 
@@ -413,5 +405,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dq.launches = 0
+flash_bwd.launches = 0

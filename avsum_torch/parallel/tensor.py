@@ -45,7 +45,7 @@ replicated activations):
   along its last axis is gathered before use, once a layer a step, by
   the same ``gather_from``;
 - the attention core runs on the gathered q, k, v at full heads on every
-  rank: the flash kernels (K2 forward, B3 and B4 backward) at S >= 512,
+  rank: the flash kernels (K2 forward, the fused backward) at S >= 512,
   the ring before them when ``seq`` > 1. GSPMD gathers around a
   ``pallas_call`` the same way.
 

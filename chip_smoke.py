@@ -19,27 +19,29 @@ raising on failure:
    (attention encoder, hidden 512, 4 heads, 2 layers; S = 1024 shots, so
    the encoders' attention runs at D = 128 and the fusion's at D = 256)
    on a synthetic feature cache of 4 videos for 2 epochs, then
-   ``--resume`` for a third: K2, B3 and B4 must run, the loss must be
+   ``--resume`` for a third: K2 and the backward must run, the loss must be
    finite, the checkpoint written and the resumed run start at epoch 2;
 6. each kernel against its plain PyTorch version on the card, float32
    with TF32 off, on fixed cases and at the shapes the runs gave it (K1
-   also at 64 mel bands and on a quiet waveform; K2, B3 and B4 also at
-   the hour step's S = 7168; K2 also at the train run's S = 1024 and at
-   S = 63, 64, 65, 127 and 129 in both its block sizes, around its
-   64-key tiles, with its tiling held to the library's; B3 and B4 also
-   at S = 63, 64, 65, 127 and 129, around their 32-row blocks and 64-row
-   tiles), with CUDA-event times of both at those
+   also at 64 mel bands and on a quiet waveform; K2 and the backward also
+   at the hour step's S = 7168; K2 also at the train run's S = 1024 and
+   at S = 63, 64, 65, 127 and 129 in both its block sizes, around its
+   64-key tiles, with its tiling held to the library's; the backward
+   also at S = 63, 64, 65, 127 and 129, around its 64-key blocks and
+   64-query tiles, with its tiling held to the library's and the clusters
+   the card runs at once), with CUDA-event times of both at those
    shapes, taken in turns over 5 rounds (median, min-max), beside each
    kernel's bound (:func:`bound`) and the time of the one PyTorch call
    that computes the same function (SDPA's efficient attention for K2,
-   its backward against B3 + B4; none for K1); the flash backward also
-   against autograd of the plain attention;
+   its backward for the backward kernel; none for K1); the flash
+   backward also against autograd of the plain attention;
 7. one hour-scale train step on the card against the same step on the
    CPU (same parameters and batch, dropout 0): loss, every gradient and
    the parameters after 3 steps;
 8. one train step at S = 7168 with remat (``scripts/bench_train_hour.py``'s
    shape): its time, peak device memory, and the device time of two
-   steps by kernel (K2, B3, B4, cuBLAS, the rest; torch.profiler);
+   steps by kernel (K2, the backward, cuBLAS, the rest and its largest
+   kernels; torch.profiler);
 9. the dataset path through the CLI at the ``configs/summe.yaml`` widths
    (those of phase 3), on a directory of the phase 3 and 4 videos and
    three more, with SumMe-shaped ground truth of five users each:
@@ -91,7 +93,7 @@ raising on failure:
    through ring attention (each rank's step time and peak memory beside
    phase 8's flash step), and 3 steps at S = 1024, dropout 0, against
    one process on the card; (b) the same at ``mesh.seq=1 mesh.data=2``,
-   S = 1024, where K2, B3 and B4 must run on each rank; (c)
+   S = 1024, where K2 and the backward must run on each rank; (c)
    ``configs/moe_ep.yaml`` and (d) ``configs/deep_pp.yaml`` at their own
    2 x 4 meshes and widths, 3 steps against one process, each rank
    holding a quarter of the experts or one stage of four; (e) ``train``
@@ -104,7 +106,7 @@ raising on failure:
 13. tensor parallelism over ``model`` and the tools: (a)
    ``configs/hour_scale.yaml``'s widths at data 1 x model 2 with the
    state placed by ``shard_state`` and stepped with ``state_sharding``:
-   3 steps at S = 7168 with remat (K2, B3 and B4 on each rank), then 3
+   3 steps at S = 7168 with remat (K2 and the backward on each rank), then 3
    at S = 1024, dropout 0, at seq 2 x model 2, each against one process
    by ``compare_train_step``'s rule, with each rank's step time, peak
    memory and parameter bytes against the replicated placement's; (b)
@@ -124,7 +126,7 @@ raising on failure:
    segments equal to the cold run's, or the bench fails), the fresh
    process's ``warm_probe``; (b) ``python -m avsum_torch.bench train-hour
    --mode chip``: the S = 7168 step with and without remat, finite losses,
-   K2, B3 and B4 launched in each; (c) ``visual.weights`` naming the JAX
+   K2 and the backward launched in each; (c) ``visual.weights`` naming the JAX
    package's msgpack file of the tiny backbone with bfloat16 leaves
    (``tests/fixtures``), read without the ``msgpack`` package: summarize of
    the phase 3 video (encoders in float32) against the CPU's plain path
@@ -524,111 +526,79 @@ def _bwd_inputs(qkv, mask, cot):
     return q, k, v, cot, mask, lse, delta
 
 
-def check_b34() -> tuple:
-    """B3 and B4 against their plain versions on the same inputs, and the
-    whole backward (K2 -> B3 -> B4) against autograd of the plain
-    attention; CUDA-event times at the train run's shapes."""
+def check_bwd() -> dict:
+    """The backward kernel against its plain version on the same inputs,
+    and the whole backward (K2 -> it) against autograd of the plain
+    attention; CUDA-event times at the train run's and the hour step's
+    shapes beside its plain version, its bound (five S x S x D products)
+    and SDPA's backward."""
     import torch
 
     from avsum_torch.ops import attention as att
 
-    worst = {"dkv": 0.0, "dq": 0.0}
+    worst = 0.0
     for d in (128, 256):
-        print(f"B3/B4 layout at D={d}: {att.bwd_layout(d)} (held to the "
-              f"library's at the first launch)")
-        # S around the tiles (32 resident rows a block, 64 streamed a tile)
+        print(f"backward layout at D={d}: {att.bwd_layout(d)} (held to the "
+              f"library's at the first launch); clusters of {d // 64} CTAs "
+              f"the card runs at once: {att.bwd_max_clusters(d)}")
+        # S around the tiles (64 keys a cluster, 64 queries a tile)
         for s in (40, 63, 64, 65, 127, 129, 512, 544, 1000, 1024, 2049):
             qkv, mask, cot = _flash_case(2, s, d, seed=s + d)
             args = _bwd_inputs(qkv, mask, cot)
-            dk, dv = att.flash_bwd_dkv(*args)
-            dq = att.flash_bwd_dq(*args)
-            pk, pv = att.flash_bwd_dkv_plain(*args)
-            pq = att.flash_bwd_dq_plain(*args)
-            got = _grads(att.flash_attention, qkv, mask, cot)
-            want = _grads(att.attention_plain, qkv, mask, cot)
+            got = att.flash_bwd(*args)
+            want = att.flash_bwd_plain(*args)
+            auto = _grads(att.flash_attention, qkv, mask, cot)
+            auto_want = _grads(att.attention_plain, qkv, mask, cot)
             torch.cuda.synchronize()
-            for a, b_ in ((dk, pk), (dv, pv), (dq, pq), *zip(got, want)):
+            for a, b_ in (*zip(got, want), *zip(auto, auto_want)):
                 torch.testing.assert_close(a, b_, **B34_TOL)
-            dkv = max((dk - pk).abs().max().item(),
-                      (dv - pv).abs().max().item())
-            worst["dkv"] = max(worst["dkv"], dkv)
-            worst["dq"] = max(worst["dq"], (dq - pq).abs().max().item())
-            auto = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
-            print(f"B3/B4 D={d} S={s}: max|d(dk,dv)| vs plain {dkv:.3e}, "
-                  f"max|d dq| {worst['dq']:.3e}, grads vs autograd of the "
-                  f"plain attention {auto:.3e}")
-    timing = {}
-    for d in (256, 128):
-        qkv, mask, cot = _flash_case(1, 1024, d, seed=d)
+            err = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
+            worst = max(worst, err)
+            auto_err = max((a - b_).abs().max().item()
+                           for a, b_ in zip(auto, auto_want))
+            print(f"backward D={d} S={s}: max|d(dq,dk,dv)| vs plain "
+                  f"{err:.3e}, grads vs autograd of the plain attention "
+                  f"{auto_err:.3e}")
+    result = {}
+    for s, d, iters in ((1024, 256, 20), (1024, 128, 20), (7168, 256, 5),
+                        (7168, 128, 5)):
+        qkv, mask, cot = _flash_case(1, s, d, seed=d)
+        if s == 7168:
+            mask.fill_(1.0)
         args = _bwd_inputs(qkv, mask, cot)
-        fns = {
-            "dkv": lambda: att.flash_bwd_dkv(*args),
-            "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args),
-            "dq": lambda: att.flash_bwd_dq(*args),
-            "dq_plain": lambda: att.flash_bwd_dq_plain(*args),
-            "route": lambda: _grads(att.flash_attention, qkv, mask, cot),
-            "route_plain": lambda: _grads(att.attention_plain, qkv, mask,
-                                          cot)}
+        got, want = att.flash_bwd(*args), att.flash_bwd_plain(*args)
+        torch.cuda.synchronize()
+        for a, b_ in zip(got, want):
+            torch.testing.assert_close(a, b_, **B34_TOL)
+        worst = max(worst, max((a - b_).abs().max().item()
+                               for a, b_ in zip(got, want)))
+        del got, want
+        fns = {"kernel": lambda: att.flash_bwd(*args),
+               "plain": lambda: att.flash_bwd_plain(*args)}
+        if s == 1024:
+            fns["route"] = lambda: _grads(att.flash_attention, qkv, mask, cot)
+            fns["route_plain"] = lambda: _grads(att.attention_plain, qkv,
+                                                mask, cot)
         lib_note, library = _library_backward(qkv, mask, cot)
         if library is not None:
             fns["library"] = library
-        t = compare_ms(fns)
-        b3 = attention_bound(1, 1024, 4, d, products=4, in_rows=4,
-                             out_rows=2)
-        b4 = attention_bound(1, 1024, 4, d, products=3, in_rows=4,
-                             out_rows=1)
-        lib = (f"{fmt_ms(t['library'])} against B3 + B4 "
-               f"{t['dkv'][0] + t['dq'][0]:.3f} ms" if library else "none")
-        print(f"B3/B4 at [1, 1024, 4, {d}]: B3 {fmt_ms(t['dkv'])}, plain "
-              f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms "
-              f"({b3['bound_ms'] / t['dkv'][0]:.1%}); B4 {fmt_ms(t['dq'])}, "
-              f"plain {fmt_ms(t['dq_plain'])}, bound {b4['bound_ms']:.4f} ms "
-              f"({b4['bound_ms'] / t['dq'][0]:.1%}); forward+backward, kernel route "
-              f"{fmt_ms(t['route'])}, plain route {fmt_ms(t['route_plain'])}; "
-              f"library (SDPA efficient-attention backward, dq dk dv) {lib} "
-              f"({lib_note})")
-        timing.setdefault(d, ({k: v[0] for k, v in t.items()}, b3, b4))
-    for d in (256, 128):  # the hour step's shapes, one launch each
-        qkv, mask, cot = _flash_case(1, 7168, d, seed=d)
-        mask.fill_(1.0)
-        args = _bwd_inputs(qkv, mask, cot)
-        dk, dv = att.flash_bwd_dkv(*args)
-        pk, pv = att.flash_bwd_dkv_plain(*args)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(dk, pk, **B34_TOL)
-        torch.testing.assert_close(dv, pv, **B34_TOL)
-        del dk, dv, pk, pv
-        dq, pq = att.flash_bwd_dq(*args), att.flash_bwd_dq_plain(*args)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(dq, pq, **B34_TOL)
-        del dq, pq
-        fns = {"dkv": lambda: att.flash_bwd_dkv(*args),
-               "dkv_plain": lambda: att.flash_bwd_dkv_plain(*args),
-               "dq": lambda: att.flash_bwd_dq(*args),
-               "dq_plain": lambda: att.flash_bwd_dq_plain(*args)}
-        lib_note, library = _library_backward(qkv, mask, cot)
-        if library is not None:
-            fns["library"] = library
-        t = compare_ms(fns, iters=5)
-        b3 = attention_bound(1, 7168, 4, d, products=4, in_rows=4,
-                             out_rows=2)
-        b4 = attention_bound(1, 7168, 4, d, products=3, in_rows=4,
-                             out_rows=1)
-        lib = (f"{fmt_ms(t['library'])} against B3 + B4 "
-               f"{t['dkv'][0] + t['dq'][0]:.3f} ms" if library else "none")
-        print(f"B3/B4 at [1, 7168, 4, {d}]: B3 {fmt_ms(t['dkv'])}, plain "
-              f"{fmt_ms(t['dkv_plain'])}, bound {b3['bound_ms']:.4f} ms "
-              f"({b3['bound_ms'] / t['dkv'][0]:.1%}); B4 {fmt_ms(t['dq'])}, "
-              f"plain {fmt_ms(t['dq_plain'])}, bound {b4['bound_ms']:.4f} ms "
-              f"({b4['bound_ms'] / t['dq'][0]:.1%}); library (SDPA efficient-attention "
-              f"backward, dq dk dv) {lib} ({lib_note})")
+        t = compare_ms(fns, iters=iters)
+        bnd = attention_bound(1, s, 4, d, products=5, in_rows=4, out_rows=3)
+        lib = (f"{fmt_ms(t['library'])}, {t['library'][0] / t['kernel'][0]:.3f}"
+               f"x the kernel's" if library else "none")
+        route = (f"; forward+backward, kernel route {fmt_ms(t['route'])}, "
+                 f"plain route {fmt_ms(t['route_plain'])}" if s == 1024
+                 else "")
+        print(f"backward at [1, {s}, 4, {d}]: kernel {fmt_ms(t['kernel'])}, "
+              f"plain {fmt_ms(t['plain'])}, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}; {bnd['bound_ms'] / t['kernel'][0]:.1%})"
+              f"{route}; library (SDPA efficient-attention backward, dq dk "
+              f"dv) {lib} ({lib_note})")
+        if not result:
+            result = {"ms": t["kernel"][0], "plain_ms": t["plain"][0], **bnd,
+                      "library_ms": t["library"][0] if library else None}
         del fns, library, args
-    t, b3, b4 = timing[256]
-    library = t.get("library")
-    return ({"max_abs_err": worst["dkv"], "ms": t["dkv"],
-             "plain_ms": t["dkv_plain"], **b3, "library_ms": library},
-            {"max_abs_err": worst["dq"], "ms": t["dq"],
-             "plain_ms": t["dq_plain"], **b4, "library_ms": library})
+    return {"max_abs_err": worst, **result}
 
 
 def _library_backward(qkv, mask, cot):
@@ -680,16 +650,14 @@ def _train_counts():
     from avsum_torch.ops import attention as att
 
     return {"flash_fwd": att.flash_attention.launches,
-            "flash_bwd_dkv": att.flash_bwd_dkv.launches,
-            "flash_bwd_dq": att.flash_bwd_dq.launches}
+            "flash_bwd": att.flash_bwd.launches}
 
 
 def _reset_train_counts() -> None:
     from avsum_torch.ops import attention as att
 
     att.flash_attention.launches = 0
-    att.flash_bwd_dkv.launches = 0
-    att.flash_bwd_dq.launches = 0
+    att.flash_bwd.launches = 0
 
 
 def run_train(tmp: str) -> dict:
@@ -717,7 +685,7 @@ def run_train(tmp: str) -> dict:
         print(f"train {list(extra)} to epoch {epochs}: rc {rc}, "
               f"{time.perf_counter() - t0:.1f} s, launches {counts}")
         if rc != 0 or min(counts.values()) <= 0:
-            raise AssertionError(f"train did not run all three kernels: "
+            raise AssertionError(f"train did not run both kernels: "
                                  f"rc {rc}, {counts}")
         return counts
 
@@ -858,8 +826,8 @@ def hour_step(sets: tuple = (), label: str = "hour step",
 
 
 # kernel-name fragments -> the split of a profiled step
-KERNEL_GROUPS = (("K2", "flash_fwd_kernel"), ("B3", "flash_bwd_dkv_kernel"),
-                 ("B4", "flash_bwd_dq_kernel"), ("cuBLAS", "gemm"))
+KERNEL_GROUPS = (("K2", "flash_fwd_kernel"), ("backward", "flash_bwd_kernel"),
+                 ("cuBLAS", "gemm"))
 
 
 def _device_work(evt) -> bool:
@@ -874,7 +842,8 @@ def _device_work(evt) -> bool:
 
 def profile_step(run_step, steps: int) -> None:
     """Device time of ``steps`` train steps by kernel group
-    (torch.profiler), per step: K2, B3, B4, cuBLAS GEMMs and the rest."""
+    (torch.profiler), per step: K2, the backward, cuBLAS GEMMs and the
+    rest, and the rest's five largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -888,18 +857,24 @@ def profile_step(run_step, steps: int) -> None:
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps * 1e3
     split = {name: [0.0, 0] for name, _ in KERNEL_GROUPS + (("other", ""),)}
+    others = []
     for evt in prof.key_averages():
         if not _device_work(evt) or evt.self_device_time_total <= 0:
             continue
         name = evt.key.lower()
         group = next((g for g, frag in KERNEL_GROUPS if frag.lower() in name),
                      "other")
-        split[group][0] += evt.self_device_time_total / 1e3 / steps
+        ms = evt.self_device_time_total / 1e3 / steps
+        split[group][0] += ms
         split[group][1] += evt.count / steps
+        if group == "other":
+            others.append((ms, evt.count / steps, evt.key[:60]))
     busy = sum(ms for ms, _ in split.values())
     print("hour step profile, per step (device ms, launches): "
           + ", ".join(f"{g} {ms:.2f} ({n:g})" for g, (ms, n) in split.items())
-          + f"; device busy {busy:.2f} of {wall:.1f} ms wall (profiled)")
+          + f"; device busy {busy:.2f} of {wall:.1f} ms wall (profiled); "
+          + "largest of the rest: " + "; ".join(
+              f"{k} {ms:.2f} ({n:g})" for ms, n, k in sorted(others)[::-1][:5]))
     if busy <= 0:
         print("hour step profile: the profiler saw no device time")
 
@@ -2003,7 +1978,7 @@ def mesh_hour(ranks_4, card: str, flash: dict) -> None:
 
 def mesh_data(card: str) -> dict:
     """Phase 12 (b): hour_scale.yaml at data 2 (seq 1), S = 1024, 3 steps:
-    each rank runs K2, B3 and B4 -> their launches summed over the ranks."""
+    each rank runs K2 and the backward -> their launches summed over the ranks."""
     from avsum_torch.parallel.multihost import Ranks
     from avsum_torch.train.config import load_config
 
@@ -2018,7 +1993,7 @@ def mesh_data(card: str) -> dict:
         print(f"phase 12 (b) rank {r['rank']}: launches {r['counts']}")
         if min(r["counts"].values()) <= 0:
             raise AssertionError(f"phase 12 (b): rank {r['rank']} did not "
-                                 f"run K2, B3 and B4: {r['counts']}")
+                                 f"run K2 and the backward: {r['counts']}")
     return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
 
 
@@ -2170,7 +2145,7 @@ def mesh_nccl(card: str) -> None:
 
 
 def run_mesh(tmp: str, card: str, flash: dict) -> tuple:
-    """Phase 12 -> (K2, B3 and B4 launches of (b)'s ranks, (c)'s ranks and
+    """Phase 12 -> (K2 and backward launches of (b)'s ranks, (c)'s ranks and
     one-process run, (d)'s)."""
     from avsum_torch.parallel.multihost import Ranks
 
@@ -2238,7 +2213,7 @@ def _tp_bytes_check(label: str, ranks: list, config: str, m: int,
 def tp_hour(card: str, flash: dict) -> dict:
     """Phase 13 (a): hour_scale.yaml's widths at data 1 x model 2 under
     ``shard_state`` / ``state_sharding``: 3 steps at S = 7168 with remat
-    (K2, B3 and B4 on each rank) against one process, then 3 steps at
+    (K2 and the backward on each rank) against one process, then 3 steps at
     S = 1024, dropout 0, at seq 2 x model 2 (ring attention) against one
     process -> the 7168 run's launches, summed over its ranks."""
     from avsum_torch.parallel.multihost import Ranks
@@ -2263,7 +2238,7 @@ def tp_hour(card: str, flash: dict) -> dict:
         print(f"phase 13 (a) rank {r['rank']}: launches {r['counts']}")
         if min(r["counts"].values()) <= 0:
             raise AssertionError(f"phase 13 (a): rank {r['rank']} did not "
-                                 f"run K2, B3 and B4: {r['counts']}")
+                                 f"run K2 and the backward: {r['counts']}")
     sets = ["mesh.seq=2", "mesh.model=2", "model.dropout=0",
             "train.warmup_steps=1"]
     batch = _mesh_batch(1, 1024, cfg, 8)
@@ -2407,7 +2382,7 @@ def check_dtw() -> None:
 
 def run_phase13(tmp: str, card: str, flash: dict, moe: tuple, pipeline,
                 model, many: str) -> dict:
-    """Phase 13 -> the launches of its K1, K2, B3 and B4 runs."""
+    """Phase 13 -> the launches of its K1, K2 and backward runs."""
     print(card)
     t0 = time.perf_counter()
     n_tp = tp_hour(card, flash)
@@ -2496,7 +2471,7 @@ def bench_e2e(media) -> dict:
 
 def bench_train_hour() -> dict:
     """Phase 14 (b): ``python -m avsum_torch.bench train-hour --mode chip``
-    at S = 7168, with and without remat -> K2, B3 and B4 launches."""
+    at S = 7168, with and without remat -> K2 and backward launches."""
     lines = run_bench("train-hour", "--mode", "chip", timeout=900)
     for line in lines:
         print(f"phase 14 (b) bench train-hour: {json.dumps(line)}")
@@ -2564,7 +2539,7 @@ def check_msgpack(tmp: str, short: str, budget: float) -> dict:
 
 def run_phase14(tmp: str, card: str, media, short: str,
                 budget: float) -> dict:
-    """Phase 14 -> the launches of its K1, K2, B3 and B4 runs."""
+    """Phase 14 -> the launches of its K1, K2 and backward runs."""
     print(card)
     t0 = time.perf_counter()
     n_e2e = bench_e2e(media)
@@ -2574,8 +2549,7 @@ def run_phase14(tmp: str, card: str, media, short: str,
     return {"melspec": n_e2e["melspec"] + n_msgpack["melspec"],
             "flash_fwd": (n_e2e["flash_fwd"] + n_msgpack["flash_fwd"]
                           + n_train["flash_fwd"]),
-            "flash_bwd_dkv": n_train["flash_bwd_dkv"],
-            "flash_bwd_dq": n_train["flash_bwd_dq"]}
+            "flash_bwd": n_train["flash_bwd"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2985,7 +2959,7 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
 
     k1 = check_k1(k1_samples)
     k2 = check_k2(s_pad)
-    b3, b4 = check_b34()
+    bwd = check_bwd()
     compare_train_step()
     flash = hour_step()
     n_mesh, moe, deep = run_mesh(tmp, card, flash)
@@ -3009,18 +2983,13 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
                       + n_serve["flash_fwd"] + n_cfg4["flash_fwd"]
                       + n_mesh["flash_fwd"] + n_13["flash_fwd"]
                       + n_14["flash_fwd"]), **k2},
-        {"name": "flash_bwd_dkv", "route": "cuda",
+        {"name": "flash_bwd", "route": "cuda",
          "source": "avsum_torch/csrc/flash_bwd.cu",
-         "replaces": "avsum_tpu/ops/attention.py:173",
-         "launches": (n_train["flash_bwd_dkv"] + n_mesh["flash_bwd_dkv"]
-                      + n_13["flash_bwd_dkv"] + n_14["flash_bwd_dkv"]),
-         **b3},
-        {"name": "flash_bwd_dq", "route": "cuda",
-         "source": "avsum_torch/csrc/flash_bwd.cu",
-         "replaces": "avsum_tpu/ops/attention.py:221",
-         "launches": (n_train["flash_bwd_dq"] + n_mesh["flash_bwd_dq"]
-                      + n_13["flash_bwd_dq"] + n_14["flash_bwd_dq"]),
-         **b4},
+         "replaces": ("avsum_tpu/ops/attention.py:173 and "
+                      "avsum_tpu/ops/attention.py:221"),
+         "launches": (n_train["flash_bwd"] + n_mesh["flash_bwd"]
+                      + n_13["flash_bwd"] + n_14["flash_bwd"]),
+         **bwd},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,8 +2,8 @@
 against the JAX package, on the CPU: gradients of the port's
 ``flash_attention`` (its plain route, differentiated by autograd) and of
 its ``FlashAttention`` Function (run on CPU tensors, so with the plain
-versions of K2, B3 and B4: LSE, delta and the recomputed probabilities
-as the kernels use them) against ``jax.grad`` of the JAX
+versions of K2 and the fused backward: LSE, delta and the recomputed
+probabilities as the kernels use them) against ``jax.grad`` of the JAX
 ``flash_attention`` through its custom VJP (the B3 / B4 Pallas kernels in
 interpret mode, 32 x 32 blocks) and of ``reference_attention``. The
 cotangent is zeroed at masked queries, as the scorer's output mask does.

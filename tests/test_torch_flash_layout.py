@@ -1,13 +1,14 @@
 """The flash kernels' tiling as the wrapper owns it (``avsum_torch.ops.
-attention``: K2's ``fwd_layout`` and ``fwd_rows``, B3's and B4's
+attention``: K2's ``fwd_layout`` and ``fwd_rows``, the backward's
 ``bwd_layout``), on the CPU: what ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu`` must report through ``avsum_flash_fwd_layout`` and
 ``avsum_flash_bwd_layout`` (the card-only tests
 ``test_flash_fwd_layout_matches_the_library`` and
 ``test_flash_bwd_layout_matches_the_library`` hold them together), that
 each fits a Hopper block's shared memory, that the streamed tile is
-wgmma's M, and the grids the block sizes give at the main path's shapes:
-the train run's [1, 1024, 4, D] fills the card in one wave."""
+wgmma's M, that the backward's cluster covers D, and the grids the block
+sizes give at the main path's shapes: at the train run's
+[1, 1024, 4, 128] the backward fills the card in one wave."""
 
 import math
 
@@ -23,33 +24,72 @@ def test_bwd_layout_fits_a_hopper_block(d):
     layout = att.bwd_layout(d)
     assert layout["smem"] <= att.SMEM_LIMIT == 232_448
     assert layout["blocks_per_sm"] == 1
-    # the ring, the two resident tensors' big and small planes and P's
-    # and dS's, with 1 KB to align the ring
-    rows, tile = layout["block_rows"], layout["tile_rows"]
+    # 1 KB to align the ring, the ring, ten [64 keys x 64 columns] planes
+    # (K, K^T, V, P and dS, big and small), two mbarriers a stage and
+    # four a warpgroup for the cluster's exchange: the same at both D
+    keys, tile = layout["block_keys"], layout["tile_rows"]
     assert layout["smem"] == (1024 + 4 * layout["stages"] * tile
-                              * att.BWD_CHUNK + 4 * 2 * 2 * rows * d
-                              + 4 * 2 * 2 * rows * tile
-                              + 16 * layout["stages"])
+                              * att.BWD_CHUNK + 4 * 10 * keys * att.BWD_CHUNK
+                              + 8 * (2 * layout["stages"] + 8)) == 230_528
 
 
 @pytest.mark.parametrize("d", [128, 256])
 def test_streamed_tile_is_wgmma_m(d):
     layout = att.bwd_layout(d)
-    assert layout["tile_rows"] % 64 == 0
-    # a chunk of D is one 64-row m-tile of the products over the tile, and
-    # the two warpgroups take them in pairs
-    assert d % att.BWD_CHUNK == 0 and (d // att.BWD_CHUNK) % 2 == 0
-    assert layout["block_rows"] % 8 == 0  # wgmma's N
+    assert layout["tile_rows"] == 64
+    # the resident keys are the N of the products over D and over the
+    # tile, the streamed queries dQ's: m64n64 both ways
+    assert layout["block_keys"] == layout["tile_rows"] == 64
+    # the ring holds two tiles' Q and dO chunks
+    assert layout["stages"] == 4
 
 
 @pytest.mark.parametrize("d", [128, 256])
-def test_train_shape_fills_the_card_in_one_wave(d):
-    """[1, 1024, 4, D]: 32 resident rows a block make 128 blocks, one wave
-    on 132 SMs at one block an SM (64-row blocks would leave half idle)."""
+def test_bwd_cluster_covers_d(d):
+    """A CTA a 64-column chunk of D (one TMA chunk, one m-tile of dK^T and
+    dV^T): 2 CTAs at D = 128, 4 at D = 256, each with the same share."""
     layout = att.bwd_layout(d)
-    blocks = math.ceil(1024 / layout["block_rows"]) * 4
-    assert blocks == 128
-    assert 0.9 * H100_SMS <= blocks <= H100_SMS * layout["blocks_per_sm"]
+    assert layout["cluster"] * att.BWD_CHUNK == d
+    assert layout["cluster"] == {128: 2, 256: 4}[d]
+
+
+# The backward's grid as csrc/flash_bwd.cu's note states it:
+# (S, D) -> (clusters, CTAs)
+BWD_GRIDS = {(1024, 128): (64, 128), (1024, 256): (64, 256),
+             (7168, 128): (448, 896), (7168, 256): (448, 1792)}
+
+
+@pytest.mark.parametrize("s,d", sorted(BWD_GRIDS))
+def test_bwd_grid_is_what_the_note_states(s, d):
+    layout = att.bwd_layout(d)
+    clusters = math.ceil(s / layout["block_keys"]) * 4
+    assert (clusters, clusters * layout["cluster"]) == BWD_GRIDS[s, d]
+
+
+def _train_shape_ctas(layout):
+    """CTAs of the backward at the train run's [1, 1024, 4, D]."""
+    return math.ceil(1024 / layout["block_keys"]) * 4 * layout["cluster"]
+
+
+@pytest.mark.parametrize("d", [128])
+def test_train_shape_fills_the_card_in_one_wave(d):
+    """[1, 1024, 4, 128]: 64 clusters of 2, 128 CTAs, one wave on 132 SMs
+    at one CTA an SM. (How many clusters the card holds at once,
+    ``bwd_max_clusters``, is the card test's to read.)"""
+    layout = att.bwd_layout(d)
+    ctas = _train_shape_ctas(layout)
+    assert ctas == 128
+    assert 0.9 * H100_SMS <= ctas <= H100_SMS * layout["blocks_per_sm"]
+
+
+def test_train_shape_at_d256_takes_more_than_one_wave():
+    """[1, 1024, 4, 256]: 64 clusters of 4, 256 CTAs, at least two waves
+    on 132 SMs by the SM count alone; the card, holding fewer clusters of
+    4 than its SMs would (a cluster's CTAs share a GPC), runs three."""
+    layout = att.bwd_layout(256)
+    ctas = _train_shape_ctas(layout)
+    assert ctas == 256
+    assert math.ceil(ctas / (H100_SMS * layout["blocks_per_sm"])) >= 2
 
 
 @pytest.mark.parametrize("d", [128, 256])
@@ -57,12 +97,13 @@ def test_check_bwd_layout_takes_the_wrappers_own(d):
     att.check_bwd_layout(list(att.bwd_layout(d).values()), d)
 
 
-@pytest.mark.parametrize("field", range(5))
-def test_check_bwd_layout_raises_when_the_kernel_drifts(field):
-    reported = list(att.bwd_layout(256).values())
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("field", range(6))
+def test_check_bwd_layout_raises_when_the_kernel_drifts(field, d):
+    reported = list(att.bwd_layout(d).values())
     reported[field] += 1
     with pytest.raises(RuntimeError, match="disagree"):
-        att.check_bwd_layout(reported, 256)
+        att.check_bwd_layout(reported, d)
 
 
 @pytest.mark.parametrize("d", [64, 192, 512])

@@ -1,8 +1,9 @@
-"""The 3xTF32 arithmetic of B3 and B4 (``csrc/flash_bwd.cu``) and of K2
-(``csrc/flash_fwd.cu``), emulated in NumPy on the CPU: can the split the
-kernels use meet the card's tolerance on the gradients (``chip_smoke.py``'s
-``B34_TOL``, rtol = atol = 1e-4) and on the forward's output and LSE
-(``K2_TOL``, rtol = atol = 1e-5) at the hour step's S = 7168?
+"""The 3xTF32 arithmetic of the flash kernels, the forward K2
+(``csrc/flash_fwd.cu``) and the fused backward (``csrc/flash_bwd.cu``),
+emulated in NumPy on the CPU: can the split the kernels use meet the
+card's tolerance on the gradients (``chip_smoke.py``'s ``B34_TOL``, rtol =
+atol = 1e-4) and on the forward's output and LSE (``K2_TOL``, rtol = atol
+= 1e-5) at the hour step's S = 7168?
 
 The emulation follows the kernels: the A operand, read from every
 streamed tile, split in two instructions (``mma_tf32.cuh``'s
@@ -14,9 +15,12 @@ terms first) added exactly and rounded toward zero into float32, as the
 tensor cores accumulate; that run's sum then added to the float32
 accumulator rounding to nearest.
 Held against float64 on seeded [7168, 256] rows: the contraction over
-the sequence (dK^T = Q^T dS, dV^T = dO^T P) and over D (S = Q K^T); and
-the whole forward, tile by tile with its online softmax, against the
-softmax in float64."""
+the sequence (dK^T = Q^T dS, dV^T = dO^T P) and over D (S = Q K^T); the
+whole forward, tile by tile with its online softmax, against the
+softmax in float64; and the whole fused backward (partial S and dP over
+each CTA's 64 columns summed over the cluster, P and dS, dV^T, dK^T over
+the query tiles, dQ per key block summed over the key blocks in a
+shuffled order) against the same formulas in float64."""
 
 import numpy as np
 import pytest
@@ -214,3 +218,130 @@ def test_forward_one_tf32_pass_misses_k2_tol(forward_case):
     misses K2's tolerance on the same inputs."""
     inputs, want = forward_case
     assert _worst_k2(emulate_forward(*inputs, passes=1), want) > 1.0
+
+
+# The fused backward (csrc/flash_bwd.cu): a cluster of D / 64 CTAs owns 64
+# keys; CTA c forms the partial S_c = Q_c K_c^T and dP_c = dO_c V_c^T over
+# its 64 columns (one run of 8 k-steps, A the streamed chunk by row, B the
+# resident planes), the cluster sums the partials in float32 as
+# (p0 + p1) + (p2 + p3) (every CTA the same sum); P = exp(S * scale - LSE), read back by the dS group as big + small
+# from its planes; dS = P (dP - delta); dV_c^T += dO_c^T P and dK_c^T +=
+# Q_c^T dS one run a 64-query tile (A the chunk by column, B the P and dS
+# planes); dQ_c = dS K_c one run a key block (A dS truncated in registers,
+# B the transposed K planes), scaled, and added to dQ in float32 by the
+# key blocks in whatever order they run.
+BWD_KEYS = 64  # keys a cluster owns
+BWD_BLOCK_AT = 37  # the key block whose dK and dV are emulated
+BWD_TILE_AT = 61  # the query tile whose dQ is emulated
+
+
+def _readback(p):
+    """P as the dS group reads it back from its big and small planes:
+    big = tf32(P) rounded, plus the small plane's bits (x - big with half a
+    TF32 ulp added for the MMA's truncation), summed in float32."""
+    big = _split(p, "rounded")[0]
+    bits = (p - big).astype(np.float32).view(np.uint32) + np.uint32(0x1000)
+    return (big + bits.view(np.float32)).astype(np.float32)
+
+
+def _cluster_sum(a_rows, b_rows, passes):
+    """The sum over the cluster's CTAs c, in float32 pairs, of the partial
+    a_c b_c^T over CTA c's 64 columns: a_rows [M, D], b_rows [N, D]."""
+    parts = [emulate(a_rows[:, c:c + 64].T, b_rows[:, c:c + 64].T,
+                     passes=passes) for c in range(0, a_rows.shape[1], 64)]
+    if len(parts) == 2:
+        return parts[0] + parts[1]
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
+def emulate_backward(q, k, v, do, lse, delta, passes=3, seed=0):
+    """q, k, v, do [S, D] float32, lse and delta [S] -> (dk, dv) [64, D]
+    of key block BWD_BLOCK_AT and dq [64, D] of query tile BWD_TILE_AT, as
+    the fused kernel computes them."""
+    s_len, d = q.shape
+    scale = np.float32(d ** -0.5)
+    kb = slice(BWD_BLOCK_AT * BWD_KEYS, (BWD_BLOCK_AT + 1) * BWD_KEYS)
+    qt = slice(BWD_TILE_AT * FWD_TILE, (BWD_TILE_AT + 1) * FWD_TILE)
+
+    def p_ds(rows, keys):
+        x = _cluster_sum(q[rows], k[keys], passes)
+        y = _cluster_sum(do[rows], v[keys], passes)
+        p = np.exp((x * scale).astype(np.float32)
+                   - lse[rows, None]).astype(np.float32)
+        ds = (_readback(p) * (y - delta[rows, None])).astype(np.float32)
+        return p, ds
+
+    # dV^T and dK^T of the key block over every query tile
+    p, ds = p_ds(slice(None), kb)
+    dv = np.concatenate([emulate(do[:, c:c + 64], p, passes=passes)
+                         for c in range(0, d, 64)]).T
+    dk = np.concatenate([emulate(q[:, c:c + 64], ds, passes=passes)
+                         for c in range(0, d, 64)]).T * scale
+    # dQ of the query tile: a [64 x 64] block a key block and CTA, summed
+    # over the key blocks in a shuffled order
+    _, ds = p_ds(qt, slice(None))
+    dq = np.zeros((FWD_TILE, d), np.float32)
+    order = np.random.default_rng(seed).permutation(s_len // BWD_KEYS)
+    for j in order:
+        keys = slice(j * BWD_KEYS, (j + 1) * BWD_KEYS)
+        block = np.concatenate(
+            [emulate(ds[:, keys].T, k[keys, c:c + 64], passes=passes)
+             for c in range(0, d, 64)], axis=1)
+        dq = (dq + (block * scale).astype(np.float32)).astype(np.float32)
+    return dq, dk.astype(np.float32), dv.astype(np.float32)
+
+
+def _backward_case(d, s=S, seed=5):
+    """Unit-normal q, k, v, dO [S, D] and the forward's LSE and delta =
+    rowsum(dO o O) in float32 (from float32 products, row block by row
+    block); -> the inputs and the float64 gradients (dq of the query tile,
+    dk and dv of the key block) from the same inputs."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((s, d)).astype(np.float32)
+                   for _ in range(4))
+    scale = d ** -0.5
+    lse = np.empty(s, np.float32)
+    delta = np.empty(s, np.float32)
+    for r in range(0, s, 1024):
+        logits = (q[r:r + 1024] @ k.T).astype(np.float64) * scale
+        m = logits.max(1, keepdims=True)
+        e = np.exp(logits - m)
+        lse[r:r + 1024] = (np.log(e.sum(1)) + m[:, 0]).astype(np.float32)
+        dp = (do[r:r + 1024] @ v.T).astype(np.float64)
+        delta[r:r + 1024] = ((e * dp).sum(1) / e.sum(1)).astype(np.float32)
+    q64, k64, v64, do64 = (x.astype(np.float64) for x in (q, k, v, do))
+    kb = slice(BWD_BLOCK_AT * BWD_KEYS, (BWD_BLOCK_AT + 1) * BWD_KEYS)
+    qt = slice(BWD_TILE_AT * FWD_TILE, (BWD_TILE_AT + 1) * FWD_TILE)
+
+    def p_ds(rows, keys):
+        p = np.exp(q64[rows] @ k64[keys].T * scale - lse[rows, None])
+        return p, p * (do64[rows] @ v64[keys].T - delta[rows, None])
+
+    p, ds = p_ds(slice(None), kb)
+    dv, dk = p.T @ do64, ds.T @ q64 * scale
+    _, ds = p_ds(qt, slice(None))
+    dq = ds @ k64 * scale
+    return (q, k, v, do, lse, delta), (dq, dk, dv)
+
+
+@pytest.fixture(scope="module", params=[128, 256])
+def backward_case(request):
+    return _backward_case(request.param)
+
+
+def test_fused_backward_meets_b34_tol_at_the_hour_step(backward_case):
+    """dq, dk and dv at S = 7168 (112 query tiles, 112 key blocks, the
+    cluster's 2 or 4 partial sums), D = 128 and 256, the dQ blocks summed
+    in a shuffled order."""
+    inputs, want = backward_case
+    got = emulate_backward(*inputs)
+    worst = [_worst(g, w) for g, w in zip(got, want)]
+    assert max(worst) < 0.1, worst  # within a tenth of the tolerance
+
+
+def test_fused_backward_one_tf32_pass_misses_b34_tol(backward_case):
+    """The backward's emulation has the power to fail: one TF32 product
+    for each of the five misses the tolerance on the same inputs."""
+    inputs, want = backward_case
+    got = emulate_backward(*inputs, passes=1)
+    assert max(_worst(g, w) for g, w in zip(got, want)) > 1.0

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions on the card: K1
 (log-mel, at 128 and 64 mel bands, and on a quiet waveform), K2
-(flash-attention forward, in its 32- and 64-query blocks), B3 (dK / dV)
-and B4 (dQ) against their plain versions, and K2 -> B3 -> B4 through the
-autograd Function against autograd of the plain attention.
+(flash-attention forward, in its 32- and 64-query blocks) and the fused
+backward (dQ, dK, dV in one launch) against their plain versions, and
+K2 -> the backward through the autograd Function against autograd of the
+plain attention.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. The card machine has
 no JAX, so this file imports none and runs without the suite's conftest:
@@ -10,11 +11,12 @@ no JAX, so this file imports none and runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 float32 with TF32 off. Tolerances: K1 rtol = atol = 2e-3 (the JAX
-kernel test's), K2 rtol = atol = 1e-5, B3 / B4 rtol = atol = 1e-4 on the
-gradients.
+kernel test's), K2 rtol = atol = 1e-5, the backward rtol = atol = 1e-4 on
+the gradients.
 """
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -25,10 +27,8 @@ from avsum_torch.ops.attention import (
     attention_plain,
     flash_attention,
     flash_attention_fwd,
-    flash_bwd_dkv,
-    flash_bwd_dkv_plain,
-    flash_bwd_dq,
-    flash_bwd_dq_plain,
+    flash_bwd,
+    flash_bwd_plain,
     fwd_rows,
 )
 from avsum_torch.ops.melspec import fused_log_mel, log_mel_plain
@@ -159,60 +159,41 @@ def test_flash_fwd_kernel_reads_unaligned_views(cuda, d):
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
 
-# S around B3's and B4's tiles: 32 resident rows a block, 64 streamed rows
-# a tile (ops/attention.py bwd_layout)
+# S around the backward's tiles: 64 resident keys a cluster, 64 streamed
+# queries a tile (ops/attention.py bwd_layout)
 BWD_EDGES = [63, 64, 65, 127, 129]
 
 
 @pytest.mark.parametrize("layout", ["qkv", "unaligned"])
 @pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("s", [40, 544, 1024, 2049, *BWD_EDGES])
-def test_flash_bwd_dq_kernel_matches_plain(cuda, d, s, layout):
-    """B4 alone against its plain version on the same inputs: a partial
-    key tile (S = 40), the scorer's S, a ragged multi-tile S, S on and
-    beside the block and tile edges, a padded tail and a fully masked row
-    (its P recomputed as 1 from LSE = -1e30); q and dO also as views that
-    are not 16-byte aligned."""
+def test_flash_bwd_kernel_matches_plain(cuda, d, s, layout):
+    """The backward kernel alone against its plain version on the same
+    inputs, dq, dk and dv from one launch: a partial tile (S = 40), the
+    scorer's S, a ragged multi-tile S, S on and beside the 64-key block
+    and 64-query tile edges, a padded tail and a fully masked row (its P
+    recomputed as 1 from LSE = -1e30); q, v and dO also as views that are
+    not 16-byte aligned, which the wrapper copies for the kernel's TMA
+    and 16-byte loads."""
     qkv, mask, cot = _bwd_case(cuda, 2, s, d, seed=s + 2 * d)
     q, k, v = qkv.unbind(2)
     out, lse = flash_attention_fwd(q, k, v, mask)
     delta = (cot * out).sum(-1).transpose(1, 2).contiguous()
     if layout == "unaligned":
-        q, cot = _unaligned(q), _unaligned(cot)
-    before = flash_bwd_dq.launches
-    dq = flash_bwd_dq(q, k, v, cot, mask, lse, delta)
-    assert flash_bwd_dq.launches == before + 1
-    want = flash_bwd_dq_plain(q, k, v, cot, mask, lse, delta)
-    torch.testing.assert_close(dq, want, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("layout", ["qkv", "unaligned_dout"])
-@pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("s", [40, 2049, *BWD_EDGES])
-def test_flash_bwd_dkv_kernel_matches_plain(cuda, d, s, layout):
-    """B3 alone against its plain version on the same inputs: one partial
-    query tile (S = 40), a ragged multi-tile S, S on and beside the block
-    and tile edges, a padded tail and a fully masked row; dO also as a
-    view that is not 16-byte aligned, which the wrapper copies for the
-    kernel's TMA loads."""
-    qkv, mask, cot = _bwd_case(cuda, 2, s, d, seed=s + d)
-    q, k, v = qkv.unbind(2)
-    if layout == "unaligned_dout":
-        cot = _unaligned(cot)
-    out, lse = flash_attention_fwd(q, k, v, mask)
-    delta = (cot * out).sum(-1).transpose(1, 2).contiguous()
-    before = flash_bwd_dkv.launches
-    dk, dv = flash_bwd_dkv(q, k, v, cot, mask, lse, delta)
-    assert flash_bwd_dkv.launches == before + 1
-    pk, pv = flash_bwd_dkv_plain(q, k, v, cot, mask, lse, delta)
-    torch.testing.assert_close(dk, pk, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(dv, pv, rtol=1e-4, atol=1e-4)
+        q, v, cot = _unaligned(q), _unaligned(v), _unaligned(cot)
+    before = flash_bwd.launches
+    got = flash_bwd(q, k, v, cot, mask, lse, delta)
+    assert flash_bwd.launches == before + 1
+    want = flash_bwd_plain(q, k, v, cot, mask, lse, delta)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
 
 
 def test_flash_bwd_wgmmas_are_not_serialized(cuda):
-    """ptxas runs K2's, B3's and B4's wgmmas back to back: it serializes
-    them (note C7514, each waiting for the one before) when a loop keeps a
-    wgmma group in flight across its back edge."""
+    """ptxas runs K2's and the backward's wgmmas back to back: it
+    serializes them (note C7514, each waiting for the one before) when a
+    loop keeps a wgmma group in flight across its back edge."""
     from avsum_torch import build
     from avsum_torch.ops import attention
 
@@ -239,19 +220,36 @@ def test_flash_fwd_layout_matches_the_library(cuda, d, rows):
 
 @pytest.mark.parametrize("d", [128, 256])
 def test_flash_bwd_layout_matches_the_library(cuda, d):
-    """The library's B3 / B4 tiling is the wrapper's (bwd_layout)."""
+    """The library's backward tiling is the wrapper's (bwd_layout), and
+    the card runs its clusters (D / 64 CTAs of one GPC each)."""
     from avsum_torch.ops import attention
 
     lib = attention._bwd_lib()
-    out = (ctypes.c_long * 5)()
+    out = (ctypes.c_long * 6)()
     assert lib.avsum_flash_bwd_layout(d, out) == 0
     attention.check_bwd_layout(out, d)
+    assert attention.bwd_max_clusters(d) > 0
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_bwd_train_shape_waves_on_the_card(cuda, d):
+    """The train run's [1, 1024, 4, D] launches 64 clusters; the waves they
+    take are set by how many clusters the card holds at once (a cluster's
+    D / 64 CTAs need SMs of one GPC), not by its SM count: on a 132-SM
+    H100 one wave at D = 128 (66 clusters of 2), three at D = 256 (30 of
+    4)."""
+    from avsum_torch.ops import attention
+
+    layout = attention.bwd_layout(d)
+    clusters = math.ceil(1024 / layout["block_keys"]) * 4
+    waves = math.ceil(clusters / attention.bwd_max_clusters(d))
+    assert waves <= {128: 1, 256: 3}[d]
 
 
 @pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("s", [512, 545, 40, 544, 1024, 2049, *BWD_EDGES])
 def test_flash_backward_kernels_match_plain(cuda, d, s):
-    """dq, dk, dv through K2 -> B3 -> B4 against autograd of the plain
+    """dq, dk, dv through K2 -> the backward against autograd of the plain
     version; q, k, v are strided views of one qkv tensor, as in the
     scorer; the cotangent is zero at masked queries (a padded tail, and
     batch row 1 with no valid key at all)."""
@@ -263,11 +261,10 @@ def test_flash_backward_kernels_match_plain(cuda, d, s):
         (out * cot).sum().backward()
         return leaf.grad.unbind(2)
 
-    counts = (flash_attention.launches, flash_bwd_dkv.launches,
-              flash_bwd_dq.launches)
+    counts = (flash_attention.launches, flash_bwd.launches)
     got = grads(flash_attention)
-    assert (flash_attention.launches, flash_bwd_dkv.launches,
-            flash_bwd_dq.launches) == tuple(n + 1 for n in counts)
+    assert (flash_attention.launches,
+            flash_bwd.launches) == tuple(n + 1 for n in counts)
     want = grads(attention_plain)
     for name, a, b in zip("qkv", got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
