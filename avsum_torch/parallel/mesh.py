@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from avsum_torch.utils.profiling import annotate
+
 AXIS_DATA = "data"
 AXIS_SEQ = "seq"
 AXIS_MODEL = "model"
@@ -224,14 +226,16 @@ def block_slices(shape: Tuple[int, ...], cfg: MeshConfig,
 def shard_batch(batch: Dict[str, np.ndarray], mesh: Mesh
                 ) -> Dict[str, torch.Tensor]:
     """Pad a host batch for the mesh and put this rank's block of each
-    array on its device (``shard_batch`` / ``shard_batch_dict``)."""
-    batch = pad_batch_for_mesh(batch, mesh.config.data, mesh.config.seq)
-    out = {}
-    for k, v in batch.items():
-        v = np.asarray(v)
-        block = np.ascontiguousarray(v[block_slices(v.shape, mesh.config,
-                                                    mesh.coords)])
-        out[k] = torch.from_numpy(block).to(mesh.device)
+    array on its device (``shard_batch`` / ``shard_batch_dict``), inside
+    an ``avsum.place_batch`` span."""
+    with annotate("avsum.place_batch"):
+        batch = pad_batch_for_mesh(batch, mesh.config.data, mesh.config.seq)
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            block = np.ascontiguousarray(v[block_slices(v.shape, mesh.config,
+                                                        mesh.coords)])
+            out[k] = torch.from_numpy(block).to(mesh.device)
     return out
 
 

@@ -53,7 +53,16 @@ the JAX package's names (``avsum.detect_thread``, ``avsum.visual_dispatch``,
 ``avsum.audio_pool``, ``avsum.score_select``; the classic path's
 ``avsum.shot_detect``, ``avsum.visual_features``,
 ``avsum.audio_features``), which add no wait for the device;
-``stage_seconds`` keeps its own keys.
+``stage_seconds`` keeps its own keys, each also the span ``avsum.<key>``
+where the JAX package names none. Inside them, the port's own spans:
+``avsum.frame_read`` (the reader's call in the dispatch loop),
+``avsum.frame_upload`` and ``avsum.embed_enqueue`` (the pinned upload
+and the backbones' launches, ``vision/backbone.py``),
+``avsum.detect_join`` (the finisher's join of the detect thread),
+``avsum.audio_embed`` (K1, the spectra and VGGish enqueued),
+``avsum.scorer_launch`` (the scorer's launches, without its readback)
+and ``avsum.device_wait`` (every place the caller blocks on the device:
+a pinned slot's event, the counts' copy, the scores' readback).
 """
 
 from __future__ import annotations
@@ -95,10 +104,11 @@ SCORER_PAD = 32  # the materializing path pads the shot axis to a multiple
 @contextlib.contextmanager
 def _clock(stages: Dict[str, float], name: str, span: Optional[str] = None):
     """Host-clock seconds of the block into ``stages[name]`` (the device
-    is not waited for); with ``span``, the block is also that
-    :func:`~avsum_torch.utils.profiling.annotate` span."""
+    is not waited for); the block is also the
+    :func:`~avsum_torch.utils.profiling.annotate` span ``span``, by
+    default ``avsum.<name>``."""
     t0 = time.perf_counter()
-    with annotate(span) if span else contextlib.nullcontext():
+    with annotate(span or f"avsum.{name}"):
         yield
     stages[name] = time.perf_counter() - t0
 
@@ -468,7 +478,8 @@ class AVPipeline:
                     cnt -= take
 
             for i in range(0, len(frame_idx), bs):
-                y, u, v = self._read_yuv(reader, frame_idx[i:i + bs])
+                with annotate("avsum.frame_read"):
+                    y, u, v = self._read_yuv(reader, frame_idx[i:i + bs])
                 n = y.shape[0]
                 flat = y.reshape(n, -1).astype(np.int16)
                 keep, anchor = _dedup_select(flat, anchor, ded)
@@ -493,12 +504,14 @@ class AVPipeline:
             if packed:
                 # the C++ reader writes the resized planes straight into
                 # the one-buffer layout, padded to the block's bucket
-                buf = reader.read_yuv420_packed(
-                    idx, ship, ship, self.visual.tail_bucket(len(idx)))
+                with annotate("avsum.frame_read"):
+                    buf = reader.read_yuv420_packed(
+                        idx, ship, ship, self.visual.tail_bucket(len(idx)))
                 pending.append(self.visual.dispatch_packed(buf, ship, ship))
             else:
-                block, _ = self.visual.dispatch_yuv(*self._read_yuv(reader,
-                                                                    idx))
+                with annotate("avsum.frame_read"):
+                    planes = self._read_yuv(reader, idx)
+                block, _ = self.visual.dispatch_yuv(*planes)
                 pending.extend(block)
         return pending, None
 
@@ -512,14 +525,17 @@ class AVPipeline:
             try:
                 if "wav_error" in host_work:
                     raise host_work["wav_error"]
-                audio_full = self.audio.dispatch_full(host_work["waveform"])
+                with annotate("avsum.audio_embed"):
+                    audio_full = self.audio.dispatch_full(
+                        host_work["waveform"])
             except BaseException:
                 # the detect thread reads the reader the caller then closes
                 st["det_thread"].join()
                 raise
         n_frames, frame_idx = st["n_frames"], st["frame_idx"]
         with annotate("avsum.shot_detect_host"):
-            st["det_thread"].join()
+            with annotate("avsum.detect_join"):
+                st["det_thread"].join()
             if "detect_error" in host_work:
                 raise host_work["detect_error"]
             cuts = cuts_from_scores(host_work["scores"],
@@ -610,7 +626,7 @@ class AVPipeline:
             with _clock(stages, "score"):
                 mask = np.zeros(sp, np.float32)
                 mask[:n_shots] = 1.0
-                with torch.inference_mode():
+                with torch.inference_mode(), annotate("avsum.scorer_launch"):
                     scores = model(pooled[None, :sp], audio[None],
                                    to_device(mask, self.device)[None])[0]
                 missing = counts.numpy()[:n_shots] <= 0
@@ -625,7 +641,8 @@ class AVPipeline:
                         n_frames=n_frames)
                     self.stage_seconds = stages
                     return self._score_summary(p, model, budget_fraction)
-                scores = scores[:n_shots].float().cpu().numpy()
+                with annotate("avsum.device_wait"):
+                    scores = scores[:n_shots].float().cpu().numpy()
             with _clock(stages, "select"):
                 out = self._select_from_scores(st["video_id"], scores,
                                                boundaries, fps, n_frames,
@@ -753,7 +770,7 @@ class AVPipeline:
         if not isinstance(model, nn.Module):  # an artifact places its inputs
             return torch.as_tensor(model(visual, audio, mask))[0, :s].float(
             ).cpu().numpy()
-        with torch.inference_mode():
+        with torch.inference_mode(), annotate("avsum.scorer_launch"):
             out = model(*(to_device(a, self.device)
                           for a in (visual, audio, mask)))
         return out[0, :s].float().cpu().numpy()

@@ -35,7 +35,11 @@ trainer does, the parameters are whole on every rank but the experts'
 and the stages'.
 
 PyTorch runs eagerly and updates parameters in place; the JAX step is a
-pure function of the state.
+pure function of the state. A step opens the spans ``avsum.forward`` (the
+model put in train mode, its call and the loss), ``avsum.backward`` (the
+gradients and, on a mesh, their sum over the replicas) and
+``avsum.optimizer`` (the global norm, the update and the EMA), in that
+order; the batch's placement opens ``avsum.place_batch``.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from avsum_torch.parallel.tensor import (  # noqa: F401  (the JAX names)
     state_shardings,
 )
 from avsum_torch.train.config import TrainConfig
+from avsum_torch.utils.profiling import annotate
 
 Batch = Dict[str, torch.Tensor]  # visual, audio, targets, mask
 
@@ -313,31 +318,37 @@ def make_train_step(model: nn.Module, mesh=None, seed: int = 0,
         model = state.model
         if mesh is not None and state_sharding is not None:
             _check_placement(model, state_sharding)
-        split_names = _model_split(model) if mesh is not None else set()
-        split = [n in split_names for n, _ in model.named_parameters()]
-        model.train()
-        preds = model(batch["visual"], batch["audio"], batch["mask"],
-                      generator=dropout_generator(seed, state.step))
         params: List[torch.Tensor] = state.optimizer.params
-        if mesh is None:
-            loss = masked_mse(preds, batch["targets"], batch["mask"])
+        with annotate("avsum.forward"):
+            model.train()
+            preds = model(batch["visual"], batch["audio"], batch["mask"],
+                          generator=dropout_generator(seed, state.step))
+            loss = (masked_mse(preds, batch["targets"], batch["mask"])
+                    if mesh is None else _mesh_loss(preds, batch, mesh))
+        with annotate("avsum.backward"):
             grads = torch.autograd.grad(loss, params)
-            grad_norm = state.optimizer.step(grads)
+            if mesh is not None:
+                grads = _sum_over(list(grads), mesh, REPLICA)
+        with annotate("avsum.optimizer"):
+            g_norm = None
+            if mesh is not None:
+                split_names = _model_split(model)
+                g_norm = global_norm(grads, [
+                    n in split_names for n, _ in model.named_parameters()],
+                    mesh)
+            grad_norm = state.optimizer.step(grads, g_norm)
+            if ema_decay > 0:
+                with torch.no_grad():
+                    ema = [state.ema[name]
+                           for name, _ in model.named_parameters()]
+                    torch._foreach_mul_(ema, ema_decay)
+                    torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
+        if mesh is None:
             pred_mean = preds.detach().mean()
         else:
-            loss = _mesh_loss(preds, batch, mesh)
-            grads = _sum_over(list(torch.autograd.grad(loss, params)), mesh,
-                              REPLICA)
-            grad_norm = state.optimizer.step(
-                grads, global_norm(grads, split, mesh))
             loss = all_reduce(loss.detach(), mesh, REPLICA)
             pred_mean = all_reduce(preds.detach().sum(), mesh, REPLICA) / (
                 preds.numel() * mesh.size(REPLICA))
-        if ema_decay > 0:
-            with torch.no_grad():
-                ema = [state.ema[name] for name, _ in model.named_parameters()]
-                torch._foreach_mul_(ema, ema_decay)
-                torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "pred_mean": pred_mean}
         return state, metrics

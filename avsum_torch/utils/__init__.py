@@ -1,6 +1,6 @@
 """Host utilities: logging, profiling and debug helpers (no JAX)."""
 
 from avsum_torch.utils.logging import JsonlLogger
-from avsum_torch.utils.profiling import Timer, annotate, timed
+from avsum_torch.utils.profiling import annotate
 
-__all__ = ["JsonlLogger", "Timer", "annotate", "timed"]
+__all__ = ["JsonlLogger", "annotate"]

@@ -1,15 +1,12 @@
-"""Tracing and timing (``avsum_tpu/utils/profiling.py``) on
-``torch.profiler``.
+"""Tracing (``avsum_tpu/utils/profiling.py``) on ``torch.profiler``.
 
 - ``annotate(name)`` wraps a region in a ``torch.profiler.record_function``
-  span, so the pipeline's stages show in a trace under the JAX package's
-  names, and adds the region's host seconds to every active
+  span, so the pipeline's stages and the train step's phases show in a
+  trace, and adds the region's host seconds to every active
   ``collect_stages`` collector. A span is a host-side marker: it enqueues
-  nothing on the device and waits for nothing.
-- ``Timer`` accumulates host-clock seconds; ``time(name, result)`` and
-  ``measure`` wait for ``result``'s CUDA devices (a synchronize of each)
-  before stopping, and never wait for tensors on the CPU, which are
-  computed eagerly.
+  nothing on the device and waits for nothing. Opened on the thread that
+  launches the region's work, it is stamped on the profiler's clock, so a
+  trace joins it to the device operations launched inside it.
 - ``trace_to(log_dir)`` writes a Chrome trace of the enclosed region into
   ``log_dir``, with the CPU's activity and, where a card is present, the
   CUDA kernels'; every thread's spans are in it (the pipeline's detect
@@ -19,10 +16,9 @@
 from __future__ import annotations
 
 import contextlib
-import functools
 import os
 import time
-from typing import Any, Callable, Dict, Iterator, Optional, Set
+from typing import Dict, Iterator
 
 import torch
 
@@ -56,74 +52,8 @@ def collect_stages() -> Iterator[Dict[str, float]]:
     try:
         yield acc
     finally:
-        _collectors.remove(acc)
-
-
-def _cuda_devices(tree: Any) -> Set[torch.device]:
-    if isinstance(tree, torch.Tensor):
-        return {tree.device} if tree.device.type == "cuda" else set()
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        return set().union(*(_cuda_devices(x) for x in tree))
-    return set()
-
-
-def block_until_ready(result: Any) -> Any:
-    """Wait for the CUDA devices ``result``'s tensors live on (nested
-    lists, tuples and dicts); -> ``result``."""
-    for device in _cuda_devices(result):
-        torch.cuda.synchronize(device)
-    return result
-
-
-class Timer:
-    """Accumulating host-clock timer; waits for its result's devices."""
-
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    def _add(self, name: str, dt: float) -> None:
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    @contextlib.contextmanager
-    def time(self, name: str, result: Any = None) -> Iterator[None]:
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            block_until_ready(result)
-            self._add(name, time.perf_counter() - start)
-
-    def measure(self, name: str, fn: Callable, *args, **kwargs):
-        start = time.perf_counter()
-        out = block_until_ready(fn(*args, **kwargs))
-        dt = time.perf_counter() - start
-        self._add(name, dt)
-        return out, dt
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_s": v, "count": self.counts[k],
-                    "mean_s": v / self.counts[k]}
-                for k, v in self.totals.items()}
-
-
-def timed(name: Optional[str] = None):
-    """Decorator: ``annotate`` a function's calls (coarse host spans)."""
-
-    def deco(fn: Callable) -> Callable:
-        label = name or fn.__qualname__
-
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            with annotate(label):
-                return fn(*args, **kwargs)
-
-        return wrapper
-
-    return deco
+        # by identity: two collectors may hold equal dicts
+        _collectors[:] = [c for c in _collectors if c is not acc]
 
 
 @contextlib.contextmanager

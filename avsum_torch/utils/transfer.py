@@ -4,7 +4,9 @@ A copy from pageable host memory, or any copy without ``non_blocking``,
 waits for every kernel already queued on the stream, which would put the
 host's dispatch loop in lockstep with the device. These helpers go through
 pinned memory and copy asynchronously on a CUDA device; on the CPU they
-are plain conversions (the work there is synchronous anyway).
+are plain conversions (the work there is synchronous anyway). Where the
+host does wait for the device (an event's synchronize), the wait is the
+span ``avsum.device_wait``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+from avsum_torch.utils.profiling import annotate
 
 
 def to_device(arr, device: torch.device) -> torch.Tensor:
@@ -44,7 +48,8 @@ class HostCopy:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with annotate("avsum.device_wait"):
+                self._event.synchronize()
         return self._host.numpy()
 
 
@@ -74,7 +79,8 @@ class PinnedRing:
         i = self._next
         self._next = (i + 1) % len(self._bufs)
         if self._events[i] is not None:
-            self._events[i].synchronize()
+            with annotate("avsum.device_wait"):
+                self._events[i].synchronize()
         if self._bufs[i] is None or self._bufs[i].numel() < nbytes:
             self._bufs[i] = torch.empty(nbytes, dtype=torch.uint8,
                                         pin_memory=True)

@@ -20,6 +20,7 @@ from torch import nn
 from avsum_torch.init import fast_init_
 from avsum_torch.ops.color import yuv420_to_rgb
 from avsum_torch.train.config import VisualFeatConfig
+from avsum_torch.utils.profiling import annotate
 from avsum_torch.utils.transfer import HostCopy, PinnedRing, to_device
 from avsum_torch.vision.inception import InceptionV3
 from avsum_torch.vision.resnet import ResNet50
@@ -147,9 +148,10 @@ class VisualFrontend:
     """Frame embedding on the device + masked per-shot mean pooling.
 
     The dispatch methods upload each batch through a ring of pinned
-    buffers and enqueue its embedding without waiting for the device, so
-    the host can read the next batch (or run other host work) meanwhile;
-    :meth:`pool_on_device` pools the pending features on the device."""
+    buffers (the span ``avsum.frame_upload``) and enqueue its embedding
+    without waiting for the device, so the host can read the next batch
+    (or run other host work) meanwhile; :meth:`pool_on_device` pools the
+    pending features on the device."""
 
     MIN_BUCKET = 32
 
@@ -173,13 +175,17 @@ class VisualFrontend:
 
     def _embed_packed(self, buf: torch.Tensor, h: int, w: int) -> torch.Tensor:
         """One flat uint8 device buffer ``[B*h*w | B*(h/2)*(w/2) | same]``
-        -> [B, D] float32 features (B from the buffer's length)."""
+        -> [B, D] float32 features (B from the buffer's length); the
+        colour conversion's and both networks' launches are the span
+        ``avsum.embed_enqueue``."""
         ny, nc = h * w, (h // 2) * (w // 2)
         b = buf.numel() // (ny + 2 * nc)
         y = buf[:b * ny].view(b, h, w)
         u = buf[b * ny:b * (ny + nc)].view(b, h // 2, w // 2)
         v = buf[b * (ny + nc):b * (ny + 2 * nc)].view(b, h // 2, w // 2)
-        return self.model(torch.stack(yuv420_to_rgb(y, u, v), dim=-1)).float()
+        with annotate("avsum.embed_enqueue"):
+            rgb = torch.stack(yuv420_to_rgb(y, u, v), dim=-1)
+            return self.model(rgb).float()
 
     @torch.inference_mode()
     def dispatch_yuv(self, y: np.ndarray, u: np.ndarray, v: np.ndarray):
@@ -202,7 +208,8 @@ class VisualFrontend:
                     buf[start:start + n * size] = plane.reshape(-1)
                     buf[start + n * size:start + bb * size] = 0
 
-            dev = self._ring.upload(bb * (ny + 2 * nc), fill)
+            with annotate("avsum.frame_upload"):
+                dev = self._ring.upload(bb * (ny + 2 * nc), fill)
             pending.append(self._embed_packed(dev, h, w))
         return pending, f
 
@@ -222,7 +229,9 @@ class VisualFrontend:
         def fill(host):
             host[:] = buf
 
-        return self._embed_packed(self._ring.upload(buf.shape[0], fill), h, w)
+        with annotate("avsum.frame_upload"):
+            dev = self._ring.upload(buf.shape[0], fill)
+        return self._embed_packed(dev, h, w)
 
     def collect(self, pending, n_frames: int) -> np.ndarray:
         """Pending features -> [n_frames, D] float32 on the host."""

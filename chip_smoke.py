@@ -2170,7 +2170,13 @@ def run_mesh(tmp: str, card: str, flash: dict) -> tuple:
 
 TRACE_SPANS = ("avsum.detect_thread", "avsum.visual_dispatch",
                "avsum.audio_dispatch", "avsum.shot_detect_host",
-               "avsum.visual_pool", "avsum.audio_pool", "avsum.score_select")
+               "avsum.visual_pool", "avsum.audio_pool", "avsum.score_select",
+               # the port's own, beside the JAX package's names
+               "avsum.frame_read", "avsum.frame_upload",
+               "avsum.embed_enqueue", "avsum.detect_join",
+               "avsum.audio_embed", "avsum.scorer_launch",
+               "avsum.device_wait", "avsum.audio_load", "avsum.prep",
+               "avsum.pool", "avsum.score", "avsum.select")
 DTW_RTOL = 1e-5  # device wavefront vs host DTW cost (tests/test_dtw.py)
 
 
@@ -2282,9 +2288,10 @@ def tp_moe(card: str, moe: tuple) -> None:
 
 def trace_summarize(tmp: str, pipeline, model, path: str) -> dict:
     """Phase 13 (c): ``trace_to`` around a warm device-resident summarize
-    of ``path``: the trace holds the JAX package's span names of the fast
-    path and the launches of K1 and K2; ``collect_stages`` sees the same
-    spans -> K1 and K2 launches of the run."""
+    of ``path``: the trace holds the fast path's span names (the JAX
+    package's and the port's own) and the launches of K1 and K2;
+    ``collect_stages`` sees the same spans -> K1 and K2 launches of the
+    run."""
     import glob
 
     import torch
