@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from avsum_torch.utils.profiling import annotate
+from avsum_torch.utils.transfer import StagedUpload
 
 AXIS_DATA = "data"
 AXIS_SEQ = "seq"
@@ -132,6 +133,7 @@ class Mesh:
                          if len(ranks) > 1 else None)
                 if rank in ranks:
                     self.ranks[name], self.groups[name] = ranks, group
+        self._staging: Optional[StagedUpload] = None
 
     @property
     def world(self) -> int:
@@ -143,6 +145,14 @@ class Mesh:
     def index(self, axis: str) -> int:
         """This rank's position in its group along ``axis``."""
         return self.ranks[axis].index(self.rank)
+
+    @property
+    def staging(self) -> StagedUpload:
+        """The pinned ring and copy stream that :func:`shard_batch` places
+        batches through on a CUDA device, made at first use."""
+        if self._staging is None:
+            self._staging = StagedUpload(self.device)
+        return self._staging
 
     @property
     def staged(self) -> bool:
@@ -227,16 +237,33 @@ def shard_batch(batch: Dict[str, np.ndarray], mesh: Mesh
                 ) -> Dict[str, torch.Tensor]:
     """Pad a host batch for the mesh and put this rank's block of each
     array on its device (``shard_batch`` / ``shard_batch_dict``), inside
-    an ``avsum.place_batch`` span."""
+    an ``avsum.place_batch`` span.
+
+    On a CUDA device each block is copied from its array straight into a
+    pinned slot of ``mesh.staging`` and uploaded on that ring's copy
+    stream (:class:`~avsum_torch.utils.transfer.StagedUpload`): the call
+    returns before the copy has run, and the current stream is ordered
+    after it, so whatever runs on the current stream afterwards reads the
+    batch. Each such placement adds one to ``shard_batch.staged`` and the
+    blocks' bytes to ``shard_batch.staged_bytes``. On any other device
+    (the CPU of the gloo ranks) each block is converted as it is."""
     with annotate("avsum.place_batch"):
         batch = pad_batch_for_mesh(batch, mesh.config.data, mesh.config.seq)
-        out = {}
+        blocks = {}
         for k, v in batch.items():
             v = np.asarray(v)
-            block = np.ascontiguousarray(v[block_slices(v.shape, mesh.config,
-                                                        mesh.coords)])
-            out[k] = torch.from_numpy(block).to(mesh.device)
-    return out
+            blocks[k] = v[block_slices(v.shape, mesh.config, mesh.coords)]
+        if mesh.device.type != "cuda":
+            return {k: torch.from_numpy(np.ascontiguousarray(b)).to(
+                mesh.device) for k, b in blocks.items()}
+        placed = mesh.staging.upload_arrays(list(blocks.values()))
+        shard_batch.staged += 1
+        shard_batch.staged_bytes += sum(b.nbytes for b in blocks.values())
+    return dict(zip(blocks, placed))
+
+
+shard_batch.staged = 0
+shard_batch.staged_bytes = 0
 
 
 def seq_offset(mesh: Optional[Mesh], local_len: int) -> int:

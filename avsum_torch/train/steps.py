@@ -39,7 +39,11 @@ pure function of the state. A step opens the spans ``avsum.forward`` (the
 model put in train mode, its call and the loss), ``avsum.backward`` (the
 gradients and, on a mesh, their sum over the replicas) and
 ``avsum.optimizer`` (the global norm, the update and the EMA), in that
-order; the batch's placement opens ``avsum.place_batch``.
+order; the batch's placement opens ``avsum.place_batch``. On a CUDA
+device the placement returns before its copy has run: the copy runs on
+a stream of the mesh's own, beside the step queued before it, and the
+current stream, on which the step runs, is ordered after it
+(:func:`shard_batch_dict`).
 """
 
 from __future__ import annotations
