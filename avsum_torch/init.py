@@ -2,9 +2,9 @@
 
 The rule of ``avsum_tpu/vision/backbone.py::fast_init``: fan-in-scaled
 normals for weights, zeros for biases, BatchNorm scale 1 / bias 0 /
-mean 0 / var 1, LayerNorm scale 1 / bias 0. Numbers come from a
-``torch.Generator`` seeded with ``seed``, so they differ from JAX's for
-the same seed; parity tests load JAX's weights through
+mean 0 / var 1, LayerNorm scale 1 / bias 0, RMSNorm scale 1. Numbers
+come from a ``torch.Generator`` seeded with ``seed``, so they differ
+from JAX's for the same seed; parity tests load JAX's weights through
 :mod:`avsum_torch.convert` instead.
 """
 
@@ -25,8 +25,14 @@ def fast_init_(module: nn.Module, seed: int = 0) -> nn.Module:
         p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(max(fan_in, 1)))
 
     for sub in module.modules():
-        if isinstance(sub, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
+        if isinstance(sub, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm,
+                            nn.RMSNorm)):
             sub.reset_parameters()
+        elif getattr(sub, "stacked_linear", False):
+            # stacked Linear weights [..., out, in] (the decoder's held
+            # experts): the fan-in is the last axis
+            for p in sub.parameters(recurse=False):
+                normal_(p, p.shape[-1])
         elif isinstance(sub, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             normal_(sub.weight, math.prod(sub.weight.shape[1:]))
             if sub.bias is not None:

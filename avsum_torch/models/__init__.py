@@ -1,2 +1,3 @@
 """Scorer models: self- and cross-attention, the temporal encoders (BiLSTM,
-attention, staged attention, TCN, MoE) and AVScorer."""
+attention, staged attention, TCN, MoE, the Moonlight decoder) and
+AVScorer."""

@@ -4,7 +4,9 @@
       -> modality MLPs (Linear hidden + ReLU + dropout)
       -> temporal encoder per modality (``model.temporal_encoder``: BiLSTM,
          attention blocks, or with ``model.pp_stages`` > 1 the staged
-         attention encoder, dilated convolutions "tcn", experts "moe")
+         attention encoder, dilated convolutions "tcn", experts "moe",
+         Moonlight-16B-A3B's decoder "mla_moe": latent attention and
+         sparse experts, ``models/decoder.py``)
       -> fusion: "self" concatenates and adds self-attention over the
          [B,S,2*hidden] concat (with ``model.chunk_size``, the only
          attention that takes it, as in JAX); "cross" adds to v its
@@ -50,6 +52,7 @@ from avsum_torch.models.attention import (
     MultiHeadSelfAttention,
     kernel_enabled,
 )
+from avsum_torch.models.decoder import DecoderEncoder
 from avsum_torch.models.moe import EXPERT_PARAMS, MoEEncoder, MoEFFN
 from avsum_torch.models.temporal import (
     AttentionEncoder,
@@ -97,6 +100,8 @@ def make_temporal(config: ModelConfig, use_kernel: bool,
         return TemporalConvEncoder(hid, config.temporal_layers,
                                    dropout=config.dropout, dtype=dtype,
                                    mesh=mesh)
+    if kind == "mla_moe":
+        return DecoderEncoder(config, use_kernel, mesh).to(dtype)
     raise ValueError(f"unknown temporal encoder {kind!r}")
 
 
@@ -129,6 +134,9 @@ class AVScorer(nn.Module):
         dtype = DTYPES[config.dtype]
         hid = config.hidden_dim
         use_kernel = kernel_enabled(config.use_pallas)
+        if tensor_parallel and config.temporal_encoder == "mla_moe":
+            raise ValueError("temporal_encoder mla_moe has no tensor-parallel "
+                             "layout yet")
         if (mesh is not None and config.pp_stages > 1
                 and 1 < mesh.size(AXIS_MODEL) != config.pp_stages):
             raise ValueError(

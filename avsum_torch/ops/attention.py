@@ -44,6 +44,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from avsum_torch.build import load_kernel
 
@@ -402,6 +403,27 @@ def flash_attention(
     if q.device.type == "cpu":
         return attention_plain(q, k, v, mask)
     return FlashAttention.apply(q, k, v, mask)
+
+
+def flash_attention_padded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention` at head widths the kernels lack: q and k
+    [B, S, H, Dqk], v [B, S, H, Dv] (latent attention's 192 / 128) ->
+    [B, S, H, Dv] float32, scaled by Dqk^-1/2. q and k are zero-padded to
+    the smallest width of ``KERNEL_HEAD_DIMS`` that holds both, q scaled by
+    (D / Dqk)^1/2 so that the kernel's D^-1/2 gives Dqk^-1/2, and v
+    zero-padded to D; the output's first Dv columns are the result. Exact,
+    but the kernels do the padded widths' work."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    d = min(w for w in KERNEL_HEAD_DIMS if w >= max(dqk, dv))
+    q = F.pad(q.float() * (d / dqk) ** 0.5, (0, d - dqk))
+    k = F.pad(k.float(), (0, d - dqk))
+    v = F.pad(v.float(), (0, d - dv))
+    return flash_attention(q, k, v, mask)[..., :dv]
 
 
 flash_attention.launches = 0

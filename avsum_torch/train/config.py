@@ -119,30 +119,61 @@ class ModelConfig:
     num_heads: int = 4
     scorer_hidden: int = 64
     dropout: float = 0.3
-    temporal_encoder: str = "attention"  # attention | bilstm | tcn | moe
+    # attention | bilstm | tcn | moe | mla_moe (models/decoder.py)
+    temporal_encoder: str = "attention"
     temporal_layers: int = 2
     # pipeline parallelism for the attention encoder (temporal_encoder:
     # "attention" only): >1 groups temporal_layers into this many GPipe
-    # stages sharded over the mesh's `model` axis (one stage's weights per
-    # device, microbatches streaming over the ICI ring). 0/1 = off. The
-    # stage axis must equal mesh.model when the mesh's model axis is >1;
-    # without a model axis the same stacked params run sequentially
-    # (identical math, mesh-portable checkpoints).
+    # stages over the mesh's `model` axis, one stage's weights a rank, the
+    # microbatches passed between ranks by the process group's sends and
+    # receives (parallel/pipeline.py). 0/1 = off. The stage count must
+    # equal mesh.model when the mesh's model axis is >1; without a model
+    # axis the same stacked params run one after another (identical math,
+    # mesh-portable checkpoints).
     pp_stages: int = 0
     # mixture-of-experts temporal encoder (temporal_encoder: "moe", the
     # expert-parallel upgraded-encoder path — experts shard over the mesh's
     # `model` axis when the trainer passes a mesh)
     moe_experts: int = 4
     moe_topk: int = 2
+    # the DeepSeek-V3 decoder (temporal_encoder: "mla_moe"), keys named as
+    # in the source's config.json; hidden_dim, num_heads and
+    # temporal_layers give hidden_size, num_attention_heads and
+    # num_hidden_layers. Latent attention: q without compression, k and v
+    # from a kv_lora_rank latent, decoupled RoPE on qk_rope_head_dim
+    # columns. Layers below first_k_dense_replace take a SwiGLU of
+    # intermediate_size, the rest n_routed_experts SwiGLU experts of
+    # moe_intermediate_size (sigmoid scores, the top num_experts_per_tok
+    # by score + correction bias, weights normalized and scaled by
+    # routed_scaling_factor) beside n_shared_experts shared ones.
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    routed_scaling_factor: float = 2.446
+    first_k_dense_replace: int = 1
+    # routed experts this chip holds (experts 0 .. held - 1, the first
+    # rank's block under expert parallelism): the router scores all
+    # n_routed_experts and the layer adds its held experts' share alone
+    moe_experts_held: int = 64
     fusion: str = "self"  # self (MHSA over concat) | cross (co-attention)
     chunk_size: int = 0  # 0 = full attention; >0 = blockwise/chunked
-    # flash-attention Pallas kernel (fwd + custom-VJP flash backward, so
-    # training never materializes [S,S] either): None = auto (on for TPU
-    # backends, sequences >= 512; shorter ones take the XLA attention)
+    # the flash-attention CUDA kernels (K2 forward, the fused backward, so
+    # training never materializes [S, S] either): None or True = on for
+    # CUDA tensors at sequences >= 512 (shorter ones and CPU tensors take
+    # the materialized attention); False = off everywhere
     use_pallas: Optional[bool] = None
-    # rematerialize attention blocks in the backward pass (jax.checkpoint):
-    # trades ~1 extra forward for not materializing per-block activations —
-    # the standard HBM lever for hour-scale (S~7200) training
+    # rematerialize attention blocks in the backward pass
+    # (torch.utils.checkpoint): trades ~1 extra forward for not keeping
+    # per-block activations, the memory lever for hour-scale (S~7200)
+    # training
     remat: bool = False
     dtype: str = "float32"
 

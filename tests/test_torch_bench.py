@@ -6,7 +6,6 @@ command at a small size on the CPU prints its JSON lines, in a process
 where the JAX package, JAX's libraries and ``msgpack`` cannot be imported;
 without a card and without ``--device cpu`` each raises."""
 
-import dataclasses
 import importlib.util
 import json
 import math
@@ -26,6 +25,7 @@ from avsum_tpu.train.config import load_config as jax_load_config
 from avsum_torch.bench import __main__ as bench_main
 from avsum_torch.bench import e2e, hour, train_hour
 from avsum_torch.io import synthetic
+from torch_helpers import assert_config_equals_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "tiny_backbone_bf16.msgpack")
@@ -132,9 +132,9 @@ def test_train_config_equals_the_jax_scripts():
         want_model = JaxModelConfig(hidden_dim=512, num_heads=4,
                                     temporal_layers=2, remat=remat,
                                     dtype="float32")
-        assert dataclasses.asdict(cfg.model) == dataclasses.asdict(want_model)
-        assert dataclasses.asdict(cfg.train) == dataclasses.asdict(
-            JaxTrainConfig(lr=1e-4, warmup_steps=5))
+        assert_config_equals_jax(cfg.model, want_model)
+        assert_config_equals_jax(cfg.train,
+                                 JaxTrainConfig(lr=1e-4, warmup_steps=5))
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,6 @@ per-video F1 (the paired t CI by hand), the ``--append-rows`` refusals,
 and two small runs in a process without JAX: every contender in one
 process, then moe_ep at its own mesh on 8 gloo CPU ranks, on one world."""
 
-import dataclasses
 import json
 import os
 import subprocess
@@ -18,6 +17,7 @@ import torch
 
 from avsum_torch.bench import ppep
 from avsum_torch.models.scorer import AVScorer
+from torch_helpers import assert_config_equals_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("avsum_tpu", "jax", "flax", "optax", "msgpack")
@@ -98,7 +98,7 @@ def test_training_config_equals_the_jax_scripts(jax_script, monkeypatch,
     want = built.value.args[0]
     got = ppep.run_config(512, name, model_ov, mesh_ov, 32, 100, 1, "/w",
                           f"ckpt_{name}_f2_s1")
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert_config_equals_jax(got, want)
     one = ppep.run_config(512, name, model_ov, ppep.ONE, 32, 100, 1, "/w",
                           "c")
     assert (one.mesh.data, one.mesh.seq, one.mesh.model) == (1, 1, 1)
