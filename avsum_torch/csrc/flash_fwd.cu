@@ -7,22 +7,27 @@
 // (pallas_call in _flash_fwd; wrapper flash_attention). Python wrapper:
 // avsum_torch/ops/attention.py.
 //
-// Layout: q, k, v are [B, S, H, D] views read through their (b, s, h)
-// strides with a unit stride on D, so the scorer's fused qkv projection
-// [B, S, 3, H, D] is read in place; the strides must be multiples of 4
+// Layout: q and k are [B, S, H, Dqk] views, v a [B, S, H, Dv] view, read
+// through their (b, s, h) strides with a unit stride on the head width,
+// so the scorer's fused qkv projection [B, S, 3, H, D] (Dqk = Dv = D) and
+// latent attention's q, k and the v half of its kv_b projection (Dqk =
+// 192, Dv = 128) are read in place; the strides must be multiples of 4
 // floats and the base addresses 16-byte aligned, as TMA and the 16-byte
 // query loads need (the wrapper copies a view that is not). Out is
-// [B, S, H, D] contiguous, LSE [B, H, S]. Keys past S (the ragged last
+// [B, S, H, Dv] contiguous, LSE [B, H, S]. The scores are scaled by
+// Dqk^-1/2. The width pairs (Dqk, Dv) are (128, 128), (256, 256) and
+// (192, 128); D below is Dqk where it spans q and k, Dv where it spans v. Keys past S (the ragged last
 // tile) land as zeros and take no part, so S needs no padding; masked
 // keys take part at a -1e30 bias, so a row whose keys are all masked
 // averages V uniformly over the S keys (the materialized softmax's
 // answer) and has LSE = -1e30 in float32, which the backward relies on.
 //
-// What bounds it on an H100: arithmetic. 4 * S^2 * D flops per head (two
-// S x S x D products) against O(S * D) bytes; in 3xTF32 (three TF32
-// products each, for float32's accuracy) at the dense TF32 peak of 495
-// TFLOP/s that is at least 1.28 ms at [1, 7168, 4, 256], 0.64 ms at D =
-// 128, where q, k, v and out take 0.035 ms at 3.35 TB/s.
+// What bounds it on an H100: arithmetic. 2 * S^2 * (Dqk + Dv) flops per
+// head (S x S x Dqk and S x S x Dv products) against O(S * D) bytes; in
+// 3xTF32 (three TF32 products each, for float32's accuracy) at the dense
+// TF32 peak of 495 TFLOP/s that is at least 1.28 ms at [1, 7168, 4, 256],
+// 0.64 ms at D = 128 and 3.19 ms at [1, 7168, 16, 192 / 128], where q, k,
+// v and out take 0.035 ms at 3.35 TB/s at [1, 7168, 4, 256].
 //
 // Design: on the machinery of flash_tiles.cuh (shared with the backward,
 // flash_bwd.cu). A block of two warpgroups (256 threads)
@@ -30,10 +35,11 @@
 // not cover the card's SMs (the launcher's choice, below). The R queries
 // are the N of every product (wgmma m64nRk8 TF32 in the 3xTF32 split,
 // mma_tf32.cuh), their big and small K-major B planes loaded and split
-// once a block (R D floats each). K and V stream in tiles of kTile = 64
+// once a block (R Dqk floats each). K and V stream in tiles of kTile = 64
 // keys (wgmma's M), by TMA, in chunks of [64 keys x 64 columns of D], and
 // the two groups take D's chunks by turns: group g reads chunks c with
-// c % 2 == g, gathers its A fragments from the landed chunk into
+// c % 2 == g (at Dqk = 192 group 0 K's chunks 0 and 2, group 1 chunk 1),
+// gathers its A fragments from the landed chunk into
 // registers and splits them there in two instructions (split_trunc, held
 // to the tolerance by tests/test_torch_flash_split.py). Per tile:
 //   1. S^T = K Q^T [64 keys x R queries]: each group its half of D (A the
@@ -53,10 +59,10 @@
 //      a shared row. LSE = m / log2(e) + log(l): -1e30 log2(e) / log2(e)
 //      is -1e30 again in float32, so a row with every key masked keeps
 //      its LSE of -1e30 for the backward.
-//   4. O^T = alpha O^T + V^T P^T [D x R]: each group its half of D's 64-row
-//      m-tiles (A the V chunks by column, B the P planes), rescaled by
-//      every query's alpha in registers first; O^T stays in registers,
-//      D R / 256 floats a thread: 64 at D = 256, R = 64.
+//   4. O^T = alpha O^T + V^T P^T [Dv x R]: each group its half of Dv's
+//      64-row m-tiles (A the V chunks by column, B the P planes), rescaled
+//      by every query's alpha in registers first; O^T stays in registers,
+//      Dv R / 256 floats a thread: 64 at Dv = 256, R = 64; 32 at Dv = 128.
 // Three barriers of all 256 threads a tile (S^T done, so the P planes are
 // free; the partials exchanged; P and alpha written) and one of each
 // group's 128 (its warps' maxima). The groups run the softmax at once, on
@@ -73,16 +79,25 @@
 // through the P planes because a buffer of its own (16 KB at R = 64) would
 // cost a ring stage at D = 256.
 //
+// At (192, 128) the groups' shares of step 1 are 2 : 1 chunks, of step 4
+// one m-tile each. Both groups feed the SM's tensor cores, which run the
+// true widths' 5 products a tile where the widths padded to 256 took 8;
+// the block size, the exchange and the softmax are as at the square
+// widths. Time at [1, 7168, 16, 192 / 128] on an H100: PERF.md.
+//
 // The ring: kStages stages of 16 KB, a tile's K chunks, then its V chunks,
 // tracked by full and empty mbarriers. Each chunk has one reader group,
 // so a stage's empty barrier waits for four warps, and that group's first
 // thread loads the chunk kStages ahead into the stage once they are done.
 // The query planes and P's fill the rest of the shared memory; the ring
 // takes what is left:
-//   R = 64: 4 stages at D = 256 (231,744 bytes), 8 at D = 128 (231,808);
-//   R = 32: 9 stages at D = 256 (231,184), 11 at D = 128 (231,216);
+//   R = 64: 4 stages at D = 256 (231,744 bytes), 8 at D = 128 (231,808),
+//     6 at (192, 128) (231,776);
+//   R = 32: 9 stages at D = 256 (231,184), 11 at D = 128 (231,216), 10
+//     at (192, 128) (231,200);
 // one block an SM. avsum_flash_fwd_layout reports this tiling; the wrapper
-// checks it against its own (fwd_layout) before its first launch at a D.
+// checks it against its own (fwd_layout) before its first launch at a
+// width pair.
 //
 // As in the backward (flash_bwd.cu's note): each product of a chunk is 24
 // wgmmas in two commit groups of 4 k-steps, the next group's A fragments
@@ -114,11 +129,12 @@ constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 // named barriers of all 256 threads (1 + group: one group's own)
 constexpr int kBarSDone = 3, kBarXReady = 4, kBarPReady = 5;
 
-// The tiling of a block of R queries at head width D.
-template <int D, int R>
+// The tiling of a block of R queries at head widths DQ (q, k), DV (v).
+template <int DQ, int DV, int R>
 struct Layout {
-  static constexpr int kChunks = D / kChunk;
-  static constexpr int kPlane = R * D;       // a query plane
+  static constexpr int kQChunks = DQ / kChunk;  // K's chunks a tile
+  static constexpr int kVChunks = DV / kChunk;  // V's
+  static constexpr int kPlane = R * DQ;      // a query plane
   static constexpr int kPPlane = R * kTile;  // a P plane
   static constexpr size_t kFixed =
       1024                           // to align the ring
@@ -130,9 +146,13 @@ struct Layout {
   static constexpr int kStages = (kSmemLimit - (int)kFixed) / kStageBytes;
   static constexpr size_t kBytes = kFixed + (size_t)kStages * kStageBytes;
 };
-static_assert(Layout<256, 64>::kStages == 4 && Layout<128, 64>::kStages == 8,
+static_assert(Layout<256, 256, 64>::kStages == 4 &&
+                  Layout<128, 128, 64>::kStages == 8 &&
+                  Layout<192, 128, 64>::kStages == 6,
               "K2's ring at 64 queries a block");
-static_assert(Layout<256, 32>::kStages == 9 && Layout<128, 32>::kStages == 11,
+static_assert(Layout<256, 256, 32>::kStages == 9 &&
+                  Layout<128, 128, 32>::kStages == 11 &&
+                  Layout<192, 128, 32>::kStages == 10,
               "K2's ring at 32 queries a block");
 
 // 2^x by the SFU (ex2.approx: a relative error of ~2^-22, 2^-inf = 0); the
@@ -148,19 +168,22 @@ struct Params {
   const float* q;
   long qs[3];         // q's (b, s, h) strides
   const float* mask;  // [B, S] or null
-  float *out, *lse;   // [B, S, H, D], [B, H, S]
+  float *out, *lse;   // [B, S, H, Dv], [B, H, S]
   int S, H;
   float scale;
 };
 
-template <int D, int R>
+template <int DQ, int DV, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const Params p) {
-  using L = Layout<D, R>;
-  constexpr int NC = L::kChunks;
-  constexpr int NG = NC / 2;         // chunks of a product a group takes
-  constexpr int kPerTile = 2 * NC;   // chunks a tile
+  using L = Layout<DQ, DV, R>;
+  constexpr int NQ = L::kQChunks;
+  constexpr int NQ0 = (NQ + 1) / 2, NQ1 = NQ / 2;  // K chunks of group 0, 1
+  constexpr int NG = L::kVChunks / 2;  // O^T's m-tiles a group takes
+  constexpr int kPerTile = NQ + L::kVChunks;  // chunks a tile
+  static_assert(L::kVChunks % 2 == 0 && (NQ0 == NQ1 || NQ0 == 2),
+                "one or two K chunks a group, V's m-tiles split evenly");
   constexpr int HC = R / 2;          // queries whose softmax a group runs
   constexpr int I2 = R / 16;         // their 8-column n-tiles
   constexpr uint64_t kChunkDesc = 4 * 8 * 8 * R >> 4;  // 8 k-steps of a plane
@@ -186,11 +209,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
   const int n_chunks = n_tiles * kPerTile;
 
   // Chunk m of the stream into its stage: tile m / kPerTile, K's chunks
-  // c < NC, then V's.
+  // c < NQ, then V's.
   auto load = [&](int m) {
     const int s = m % L::kStages, it = m / kPerTile, pos = m % kPerTile;
-    const CUtensorMap* map = pos < NC ? &tk : &tv;
-    const int c = pos < NC ? pos : pos - NC;
+    const CUtensorMap* map = pos < NQ ? &tk : &tv;
+    const int c = pos < NQ ? pos : pos - NQ;
     const uint32_t dst = ring + s * kChunkBytes;
     tf32::mbar_expect_tx(full + 8 * s, kChunkBytes);
     tf32::tma_load_4d(dst, map, full + 8 * s, c * kChunk, h, it * kTile, b);
@@ -205,7 +228,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
     tf32::mbar_fence_init();
     for (int m = 0; m < L::kStages && m < n_chunks; ++m) load(m);
   }
-  split_rows<R, D, kThreads>(q_big, q_small, p.q + b * p.qs[0] + h * p.qs[2],
+  split_rows<R, DQ, kThreads>(q_big, q_small, p.q + b * p.qs[0] + h * p.qs[2],
                              p.qs[1], q0, S, tid);
   tf32::fence_proxy_async();
   __syncthreads();
@@ -254,7 +277,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
   // query column 8i + 2t + e % 2. The group's own queries are the columns
   // grp HC + 8 i2 + 2t + j (i = grp I2 + i2); their running max and sum
   // are at [2 i2 + j].
-  float acc[NG][R / 2];  // O^T, m-tile 2jj + grp of D at [jj]
+  float acc[NG][R / 2];  // O^T, m-tile 2jj + grp of Dv at [jj]
 #pragma unroll
   for (int jj = 0; jj < NG; ++jj)
 #pragma unroll
@@ -279,22 +302,35 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
     }
 
     // 1. This group's part of S^T = K Q^T: K's chunks grp (and grp + 2)
-    // of D, summed in the Pipe's partials (no product is added in the
+    // of Dqk, summed in the Pipe's partials (no product is added in the
     // phase, so the first partial keeps its sum)
-    static_assert(NG == 1 || NG == 2, "a group takes one or two chunks");
-    issue<0, true>(pq, true, ga, take(n0 + grp), qd_big + grp * kChunkDesc,
-                   qd_small + grp * kChunkDesc, release(n0 + grp), pq.d[1]);
-    if (NG == 2)
-      issue<1, true>(pq, true, ga, take(n0 + grp + 2),
-                     qd_big + (grp + 2) * kChunkDesc,
-                     qd_small + (grp + 2) * kChunkDesc, release(n0 + grp + 2),
-                     pq.d[0]);
-    if (NG == 1) {
+    if constexpr (NQ0 == NQ1) {
+      issue<0, true>(pq, true, ga, take(n0 + grp), qd_big + grp * kChunkDesc,
+                     qd_small + grp * kChunkDesc, release(n0 + grp), pq.d[1]);
+      if (NQ0 == 2)
+        issue<1, true>(pq, true, ga, take(n0 + grp + 2),
+                       qd_big + (grp + 2) * kChunkDesc,
+                       qd_small + (grp + 2) * kChunkDesc,
+                       release(n0 + grp + 2), pq.d[0]);
+      if (NQ0 == 1) {
 #pragma unroll
-      for (int i = 0; i < R / 2; ++i) pq.d[1][i] = 0.f;
+        for (int i = 0; i < R / 2; ++i) pq.d[1][i] = 0.f;
+      }
+      drain<NQ0 - 1>(pq, pq.d[NQ0 == 2 ? 0 : 1]);
+    } else if (grp == 0) {  // three chunks: group 0 takes 0 and 2
+      issue<0, true>(pq, true, ga, take(n0), qd_big, qd_small, release(n0),
+                     pq.d[1]);
+      issue<1, true>(pq, true, ga, take(n0 + 2), qd_big + 2 * kChunkDesc,
+                     qd_small + 2 * kChunkDesc, release(n0 + 2), pq.d[0]);
+      drain<1>(pq, pq.d[0]);
+    } else {  // and group 1 chunk 1, its sum into the same partial
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) pq.d[0][i] = 0.f;
+      issue<1, true>(pq, true, ga, take(n0 + 1), qd_big + kChunkDesc,
+                     qd_small + kChunkDesc, release(n0 + 1), pq.d[0]);
+      drain<1>(pq, pq.d[0]);
     }
-    drain<NG - 1>(pq, pq.d[NG == 2 ? 0 : 1]);
-    const float(&sc)[R / 2] = pq.d[NG == 2 ? 0 : 1];
+    const float(&sc)[R / 2] = pq.d[NQ0 == 1 ? 1 : 0];
 
     // 2. Each group takes the other's part of its own queries' scores.
     float own[R / 4], oth[R / 4];
@@ -373,7 +409,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
     tf32::fence_proxy_async();
     bar_wait(kBarPReady);  // P and alpha of every query are in
 
-    // 4. O^T = alpha O^T + V^T P^T: V's chunks 2jj + grp, m-tiles of D
+    // 4. O^T = alpha O^T + V^T P^T: V's chunks 2jj + grp, m-tiles of Dv
 #pragma unroll
     for (int i = 0; i < R / 8; ++i)
 #pragma unroll
@@ -388,7 +424,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
       }
 #pragma unroll
     for (int jj = 0; jj < NG; jj += 2) {
-      const int n = n0 + NC + 2 * jj + grp;
+      const int n = n0 + NQ + 2 * jj + grp;
       issue<0, false>(pq, jj == 0, ga, take(n), pd_big, pd_small, release(n),
                       acc[jj > 0 ? jj - 1 : 0]);
       if (jj + 1 < NG)
@@ -432,7 +468,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
     }
   bar_wait(kBarXReady);  // every query's l is in
   // O^T's row 16w + g + 8 (e / 2) of m-tile c = 2jj + grp is column 64c +
-  // 16w + g + 8 (e / 2) of D; its column 8i + 2t + e % 2 is query q0 + that.
+  // 16w + g + 8 (e / 2) of Dv; its column 8i + 2t + e % 2 is query q0 +
+  // that.
 #pragma unroll
   for (int i = 0; i < R / 8; ++i)
 #pragma unroll
@@ -444,18 +481,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tk,
         for (int jj = 0; jj < NG; ++jj)
 #pragma unroll
           for (int r = 0; r < 2; ++r)
-            p.out[(((long)b * S + s) * p.H + h) * D + 64 * (2 * jj + grp) +
+            p.out[(((long)b * S + s) * p.H + h) * DV + 64 * (2 * jj + grp) +
                   16 * w + g + 8 * r] = acc[jj][4 * i + 2 * r + j] * inv;
     }
 }
 
-template <int D, int R>
+template <int DQ, int DV, int R>
 int launch(const float* q, const float* k, const float* v, const float* mask,
            float* out, float* lse, int B, int S, int H, const long* qs,
            const long* ks, const long* vs, cudaStream_t stream) {
   CUtensorMap tk, tv;
-  int err = make_map(&tk, k, B, S, H, D, ks);
-  if (err == 0) err = make_map(&tv, v, B, S, H, D, vs);
+  int err = make_map(&tk, k, B, S, H, DQ, ks);
+  if (err == 0) err = make_map(&tv, v, B, S, H, DV, vs);
   if (err) return err;
   Params p;
   p.q = q;
@@ -465,19 +502,19 @@ int launch(const float* q, const float* k, const float* v, const float* mask,
   p.lse = lse;
   p.S = S;
   p.H = H;
-  p.scale = 1.f / sqrtf((float)D);
-  const size_t smem = Layout<D, R>::kBytes;
+  p.scale = 1.f / sqrtf((float)DQ);
+  const size_t smem = Layout<DQ, DV, R>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DQ, DV, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + R - 1) / R, H, B);
-  flash_fwd_kernel<D, R><<<grid, kThreads, smem, stream>>>(tk, tv, p);
+  flash_fwd_kernel<DQ, DV, R><<<grid, kThreads, smem, stream>>>(tk, tv, p);
   return (int)cudaGetLastError();
 }
 
 // 32-query blocks where 64-query blocks would not cover the card's SMs.
-template <int D>
+template <int DQ, int DV>
 int launch_d(const float* q, const float* k, const float* v,
              const float* mask, float* out, float* lse, int B, int S, int H,
              const long* qs, const long* ks, const long* vs,
@@ -488,57 +525,69 @@ int launch_d(const float* q, const float* k, const float* v,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   if ((long)B * H * ((S + 63) / 64) < sms)
-    return launch<D, 32>(q, k, v, mask, out, lse, B, S, H, qs, ks, vs, stream);
-  return launch<D, 64>(q, k, v, mask, out, lse, B, S, H, qs, ks, vs, stream);
+    return launch<DQ, DV, 32>(q, k, v, mask, out, lse, B, S, H, qs, ks, vs,
+                              stream);
+  return launch<DQ, DV, 64>(q, k, v, mask, out, lse, B, S, H, qs, ks, vs,
+                            stream);
 }
 
-template <int D, int R>
+template <int DQ, int DV, int R>
 void layout(long* out) {
   constexpr long kSmSmem = 233472;  // an SM's shared memory, 228 KB
-  const long v[] = {R, kTile, Layout<D, R>::kStages,
-                    (long)Layout<D, R>::kBytes,
-                    kSmSmem / ((long)Layout<D, R>::kBytes + 1024)};
+  using L = Layout<DQ, DV, R>;
+  const long v[] = {R, kTile, L::kStages, (long)L::kBytes,
+                    kSmSmem / ((long)L::kBytes + 1024)};
   for (int i = 0; i < 5; ++i) out[i] = v[i];
+}
+
+template <int DQ, int DV>
+void layout_d(int rows, long* out) {
+  if (rows == 32) layout<DQ, DV, 32>(out);
+  else layout<DQ, DV, 64>(out);
 }
 
 }  // namespace
 
-// The tiling at head width d and rows queries a block (32 or 64):
-// out[0..4] = queries a block owns, keys per tile, TMA stages, dynamic
-// shared memory in bytes and blocks an SM holds by shared memory (each
-// block also reserves 1 KB). Returns cudaErrorInvalidValue for a d other
-// than 128 or 256 or other rows.
-extern "C" int avsum_flash_fwd_layout(int d, int rows, long* out) {
-  if (d == 128 && rows == 32) layout<128, 32>(out);
-  else if (d == 128 && rows == 64) layout<128, 64>(out);
-  else if (d == 256 && rows == 32) layout<256, 32>(out);
-  else if (d == 256 && rows == 64) layout<256, 64>(out);
+// The tiling at head widths (dqk, dv) and rows queries a block (32 or
+// 64): out[0..4] = queries a block owns, keys per tile, TMA stages,
+// dynamic shared memory in bytes and blocks an SM holds by shared memory
+// (each block also reserves 1 KB). Returns cudaErrorInvalidValue for a
+// pair other than (128, 128), (256, 256) and (192, 128), or other rows.
+extern "C" int avsum_flash_fwd_layout(int dqk, int dv, int rows, long* out) {
+  if (rows != 32 && rows != 64) return (int)cudaErrorInvalidValue;
+  if (dqk == 128 && dv == 128) layout_d<128, 128>(rows, out);
+  else if (dqk == 256 && dv == 256) layout_d<256, 256>(rows, out);
+  else if (dqk == 192 && dv == 128) layout_d<192, 128>(rows, out);
   else return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// q, k, v: float32 [B, S, H, D] with element strides {b, s, h} in
-// q_strides / k_strides / v_strides (multiples of 4, 16-byte aligned
-// bases) and unit stride on D; mask: float32 [B, S] contiguous (> 0 =
-// valid key) or null; out: [B, S, H, D] contiguous; lse: [B, H, S]. D
-// must be 128 or 256 (returns cudaErrorInvalidValue otherwise). Returns 0
-// or a CUDA error code: that of a tensor map the driver refused, of the
-// shared-memory opt-in, or cudaGetLastError() after the launch.
+// q, k: float32 [B, S, H, Dqk], v: [B, S, H, Dv], with element strides
+// {b, s, h} in q_strides / k_strides / v_strides (multiples of 4, 16-byte
+// aligned bases) and unit stride on the head width; mask: float32 [B, S]
+// contiguous (> 0 = valid key) or null; out: [B, S, H, Dv] contiguous;
+// lse: [B, H, S]. (Dqk, Dv) must be (128, 128), (256, 256) or (192, 128)
+// (returns cudaErrorInvalidValue otherwise). Returns 0 or a CUDA error
+// code: that of a tensor map the driver refused, of the shared-memory
+// opt-in, or cudaGetLastError() after the launch.
 extern "C" int avsum_flash_fwd(const void* q, const void* k, const void* v,
                                const void* mask, void* out, void* lse, int B,
-                               int S, int H, int D, const long* q_strides,
-                               const long* k_strides, const long* v_strides,
-                               void* stream) {
+                               int S, int H, int Dqk, int Dv,
+                               const long* q_strides, const long* k_strides,
+                               const long* v_strides, void* stream) {
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;
   const float* mf = (const float*)mask;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    return launch_d<128>(qf, kf, vf, mf, (float*)out, (float*)lse, B, S, H,
-                         q_strides, k_strides, v_strides, st);
-  if (D == 256)
-    return launch_d<256>(qf, kf, vf, mf, (float*)out, (float*)lse, B, S, H,
-                         q_strides, k_strides, v_strides, st);
+  if (Dqk == 128 && Dv == 128)
+    return launch_d<128, 128>(qf, kf, vf, mf, (float*)out, (float*)lse, B, S,
+                              H, q_strides, k_strides, v_strides, st);
+  if (Dqk == 256 && Dv == 256)
+    return launch_d<256, 256>(qf, kf, vf, mf, (float*)out, (float*)lse, B, S,
+                              H, q_strides, k_strides, v_strides, st);
+  if (Dqk == 192 && Dv == 128)
+    return launch_d<192, 128>(qf, kf, vf, mf, (float*)out, (float*)lse, B, S,
+                              H, q_strides, k_strides, v_strides, st);
   return (int)cudaErrorInvalidValue;
 }

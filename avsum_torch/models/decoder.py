@@ -24,8 +24,9 @@ the source: attention is bidirectional over the video's real shots,
 padded keys masked, not causal, since the scorer judges each shot
 against the whole video, as the port's attention encoder does. With the
 kernels enabled and S >= 512 it runs through K2 and the fused backward
-(:func:`avsum_torch.ops.attention.flash_attention_padded`), else
-materialized (:func:`~avsum_torch.ops.attention.attention_plain`).
+at q/k 192 and v 128, unpadded
+(:func:`avsum_torch.ops.attention.flash_attention`), else materialized
+(:func:`~avsum_torch.ops.attention.attention_plain`).
 
 The MoE layer: a float32 router of n_routed_experts outputs over the
 float32 tokens, sigmoid scores; the top num_experts_per_tok experts by
@@ -67,7 +68,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsum_torch.models.attention import FLASH_MIN_SEQ
-from avsum_torch.ops.attention import attention_plain, flash_attention_padded
+from avsum_torch.ops.attention import attention_plain, flash_attention
 from avsum_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 from avsum_torch.train.config import ModelConfig
 from avsum_torch.utils.profiling import annotate
@@ -149,7 +150,7 @@ class LatentAttention(nn.Module):
             k_pe = apply_rope(k_pe[:, :, None, :], cos, sin)
             k = torch.cat([k_nope, k_pe.expand(b, s, h, self.rope)], dim=-1)
             if self.use_kernel and isinstance(s, int) and s >= FLASH_MIN_SEQ:
-                ctx = flash_attention_padded(q, k, v, mask)
+                ctx = flash_attention(q, k, v, mask)
             else:
                 ctx = attention_plain(q, k, v, mask)
             return self.o_proj(ctx.to(x.dtype).reshape(b, s, h * self.v_dim))

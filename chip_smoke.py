@@ -34,7 +34,11 @@ raising on failure:
    kernel's bound (:func:`bound`) and the time of the one PyTorch call
    that computes the same function (SDPA's efficient attention for K2,
    its backward for the backward kernel; none for K1); the flash
-   backward also against autograd of the plain attention;
+   backward also against autograd of the plain attention; K2 and the
+   backward also at latent attention's q/k 192, v 128 on the same cases,
+   and timed at the decoder's [1, 7168, 16, 192 / 128] beside the same
+   inputs zero-padded to 256 through the square kernels (the route the
+   decoder took before the kernels took (192, 128));
 7. one hour-scale train step on the card against the same step on the
    CPU (same parameters and batch, dropout 0): loss, every gradient and
    the parameters after 3 steps;
@@ -293,10 +297,24 @@ def attention_bound(b: int, s: int, h: int, d: int, products: int,
                     in_rows: int, out_rows: int) -> dict:
     """Bound of a flash kernel at [b, s, h, d]: ``products`` S x S x D
     products per head; ``in_rows`` and ``out_rows`` [B, S, H, D] tensors
-    read and written, plus the [B, S] mask and two [B, H, S] row vectors."""
+    read and written, plus the [B, S] mask and two [B, H, S] row vectors
+    (at unequal widths: :func:`latent_bound`)."""
     flops = 2 * products * b * h * s * s * d
     nbytes = 4 * ((in_rows + out_rows) * b * s * h * d + b * s + 2 * b * h * s)
     return bound(flops, nbytes)
+
+
+def latent_bound(b: int, s: int, h: int, dqk: int, dv: int,
+                 backward: bool) -> dict:
+    """Bound of K2 (q, k, v read, out written: Q K^T at Dqk, P V at Dv) or
+    of the backward (q, k, v, dO read, dq, dk, dv written: S, dK and dQ at
+    Dqk, dP and dV at Dv) at q/k width ``dqk`` and v width ``dv``."""
+    if backward:
+        cols, io = 3 * dqk + 2 * dv, 4 * dqk + 3 * dv
+    else:
+        cols, io = dqk + dv, 2 * dqk + 2 * dv
+    flops = 2 * b * h * s * s * cols
+    return bound(flops, 4 * (io * b * s * h + b * s + 2 * b * h * s))
 
 
 def melspec_bound(samples: int, n_mels: int, n_fft: int = 400,
@@ -432,6 +450,34 @@ def _flash_case(b: int, s: int, d: int, seed: int):
     return qkv, mask, cot * mask[:, :, None, None]
 
 
+def _latent_case(b: int, s: int, h: int, seed: int):
+    """q, k [B, S, H, 192] (strided views of one tensor), v [B, S, H, 128]
+    (the second half of a [.., 256] tensor, as latent attention's kv_b
+    projection hands it), :func:`_flash_case`'s mask and a [B, S, H, 128]
+    cotangent zeroed at masked queries."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qk = torch.randn(b, s, 2, h, 192, device="cuda", generator=g)
+    kv = torch.randn(b, s, h, 256, device="cuda", generator=g)
+    mask = torch.ones(b, s, device="cuda")
+    mask[0, s - s // 5:] = 0.0
+    if b > 1:
+        mask[1] = 0.0
+    cot = torch.randn(b, s, h, 128, device="cuda", generator=g)
+    q, k = qk.unbind(2)
+    return (q, k, kv[..., 128:]), mask, cot * mask[:, :, None, None]
+
+
+def _pad256(*ts):
+    """Each tensor zero-padded on its last axis to 256, contiguous: the
+    route the decoder took at q/k 192, v 128 before the kernels took
+    those widths (q also scaled by (256 / 192)^1/2 by the caller)."""
+    import torch.nn.functional as F
+
+    return [F.pad(t, (0, 256 - t.shape[-1])) for t in ts]
+
+
 def check_k2(path_seq: int) -> dict:
     """K2 against its plain version on fixed cases (S around its 64-key
     tile, in both block sizes) and at the timed shapes; its tiling against
@@ -448,11 +494,11 @@ def check_k2(path_seq: int) -> dict:
     )
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for d in (128, 256):
-        att._checked_fwd_lib(d)
+    for dqk, dv in att.KERNEL_HEAD_DIMS:
+        att._checked_fwd_lib(dqk, dv)
         for rows in att.FWD_ROWS:
-            print(f"K2 layout at D={d}, {rows} queries a block: "
-                  f"{att.fwd_layout(d, rows)} (the library's)")
+            print(f"K2 layout at (Dqk, Dv) = ({dqk}, {dv}), {rows} queries "
+                  f"a block: {att.fwd_layout(dqk, dv, rows)} (the library's)")
     worst = 0.0
     for d in (128, 256):
         for b, s in sorted({(2, 40), (1, 544), (2, 512), (2, 544), (1, 1024),
@@ -471,6 +517,20 @@ def check_k2(path_seq: int) -> dict:
             print(f"K2 D={d} [{b}, {s}] ({att.fwd_rows(b, s, 4, sms)}-query "
                   f"blocks): max|dout| {err:.3e}, max|dlse| "
                   f"{(lse - ref_lse).abs().max().item():.3e}")
+    for b, s in ((2, 40), (1, 544), (2, 512), (2, 1000), (2, 63), (2, 64),
+                 (2, 65), (2, 127), (2, 129), (17, 127), (11, 129)):
+        (q, k, v), mask, _ = _latent_case(b, s, 4, seed=s + 192)
+        out, lse = flash_attention_fwd(q, k, v, mask)
+        ref, ref_lse = attention_fwd_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, **K2_TOL)
+        torch.testing.assert_close(lse, ref_lse, **K2_TOL)
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        print(f"K2 (192, 128) [{b}, {s}] ({att.fwd_rows(b, s, 4, sms)}-query "
+              f"blocks): max|dout| {err:.3e}, max|dlse| "
+              f"{(lse - ref_lse).abs().max().item():.3e}")
+    time_k2_latent()
     result = {}
     for s, d, iters in ((path_seq, 256, 20), (1024, 256, 20), (1024, 128, 20),
                         (7168, 256, 5), (7168, 128, 5)):
@@ -510,6 +570,93 @@ def check_k2(path_seq: int) -> dict:
     return {"max_abs_err": worst, **result}
 
 
+def time_k2_latent(s: int = 7168, h: int = 16, iters: int = 5) -> dict:
+    """K2 at the decoder's [1, S, H, 192 / 128] against its plain version
+    (once, to the tolerance), timed in turns with its plain version and
+    the same inputs padded to 256 through the square kernel (the kernel
+    alone, and the route: the pads, the kernel and the output's slice) ->
+    their (median, min, max) ms."""
+    import torch
+
+    from avsum_torch.ops import attention as att
+
+    (q, k, v), mask, _ = _latent_case(1, s, h, seed=192)
+    mask.fill_(1.0)
+    out, lse = att.flash_attention_fwd(q, k, v, mask)
+    ref, ref_lse = att.attention_fwd_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **K2_TOL)
+    torch.testing.assert_close(lse, ref_lse, **K2_TOL)
+    err = (out - ref).abs().max().item()
+    del out, lse, ref, ref_lse
+    scale = (256 / 192) ** 0.5
+    padded = _pad256(q * scale, k, v)
+
+    def route():
+        qp, kp, vp = _pad256(q * scale, k, v)
+        return att.flash_attention_fwd(qp, kp, vp, mask)[0][..., :128]
+
+    t = compare_ms({"native": lambda: att.flash_attention_fwd(q, k, v, mask),
+                    "padded": lambda: att.flash_attention_fwd(*padded, mask),
+                    "padded_route": route,
+                    "plain": lambda: att.attention_plain(q, k, v, mask)},
+                   iters=iters)
+    bnd = latent_bound(1, s, h, 192, 128, backward=False)
+    print(f"K2 at [1, {s}, {h}, 192 / 128] ({att.fwd_rows(1, s, h, 132)}-"
+          f"query blocks): native {fmt_ms(t['native'])}, padded to 256 "
+          f"{fmt_ms(t['padded'])} (route with pads and slice "
+          f"{fmt_ms(t['padded_route'])}), "
+          f"{t['padded'][0] / t['native'][0]:.3f}x the native; plain "
+          f"{fmt_ms(t['plain'])}; max|dout| "
+          f"{err:.3e}; bound at the true widths {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}; native {bnd['bound_ms'] / t['native'][0]:.1%},"
+          f" padded {bnd['bound_ms'] / t['padded'][0]:.1%})")
+    return t
+
+
+def time_bwd_latent(s: int = 7168, h: int = 16, iters: int = 5) -> dict:
+    """The backward at the decoder's [1, S, H, 192 / 128] against its plain
+    version (once, to the tolerance), timed in turns with its plain
+    version and the same inputs padded to 256 through the square kernel
+    -> their (median, min, max) ms."""
+    import torch
+
+    from avsum_torch.ops import attention as att
+
+    (q, k, v), mask, cot = _latent_case(1, s, h, seed=193)
+    mask.fill_(1.0)
+    out, lse = att.flash_attention_fwd(q, k, v, mask)
+    delta = (cot * out).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, cot, mask, lse, delta)
+    got = att.flash_bwd(*args)
+    want = att.flash_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **B34_TOL)
+    err = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
+    del got, want, out
+    qp, kp, vp, dp = _pad256(q * (256 / 192) ** 0.5, k, v, cot)
+    out_p, lse_p = att.flash_attention_fwd(qp, kp, vp, mask)
+    delta_p = (dp * out_p).sum(-1).transpose(1, 2).contiguous()
+    padded = (qp, kp, vp, dp, mask, lse_p, delta_p)
+    del out_p
+    t = compare_ms({"native": lambda: att.flash_bwd(*args),
+                    "padded": lambda: att.flash_bwd(*padded),
+                    "plain": lambda: att.flash_bwd_plain(*args)},
+                   iters=iters)
+    bnd = latent_bound(1, s, h, 192, 128, backward=True)
+    print(f"backward at [1, {s}, {h}, 192 / 128]: native "
+          f"{fmt_ms(t['native'])} (clusters of 3 the card runs at once: "
+          f"{att.bwd_max_clusters(192, 128)}), padded to 256 "
+          f"{fmt_ms(t['padded'])}, {t['padded'][0] / t['native'][0]:.3f}x "
+          f"the native; plain {fmt_ms(t['plain'])}; max|d(dq,dk,dv)| "
+          f"{err:.3e}; bound at the true widths "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; native "
+          f"{bnd['bound_ms'] / t['native'][0]:.1%}, padded "
+          f"{bnd['bound_ms'] / t['padded'][0]:.1%})")
+    return t
+
+
 def _grads(fn, qkv, mask, cot):
     leaf = qkv.clone().requires_grad_()
     out = fn(*leaf.unbind(2), mask)
@@ -537,10 +684,33 @@ def check_bwd() -> dict:
     from avsum_torch.ops import attention as att
 
     worst = 0.0
+    for dqk, dv in att.KERNEL_HEAD_DIMS:
+        print(f"backward layout at (Dqk, Dv) = ({dqk}, {dv}): "
+              f"{att.bwd_layout(dqk, dv)} (held to the library's at the "
+              f"first launch); clusters of {dqk // 64} CTAs the card runs "
+              f"at once: {att.bwd_max_clusters(dqk, dv)}")
+    for s in (40, 63, 64, 65, 127, 129, 512, 544, 1000, 1024, 2049):
+        (q, k, v), mask, cot = _latent_case(2, s, 4, seed=s + 192)
+        out, lse = att.flash_attention_fwd(q, k, v, mask)
+        delta = (cot * out).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, cot, mask, lse, delta)
+        got, want = att.flash_bwd(*args), att.flash_bwd_plain(*args)
+        leaves = [[t.clone().requires_grad_() for t in (q, k, v)]
+                  for _ in range(2)]
+        for fn, lv in zip((att.flash_attention, att.attention_plain), leaves):
+            (fn(*lv, mask) * cot).sum().backward()
+        torch.cuda.synchronize()
+        auto = [(a.grad, b_.grad) for a, b_ in zip(*leaves)]
+        for a, b_ in (*zip(got, want), *auto):
+            torch.testing.assert_close(a, b_, **B34_TOL)
+        err = max((a - b_).abs().max().item() for a, b_ in zip(got, want))
+        worst = max(worst, err)
+        auto_err = max((a - b_).abs().max().item() for a, b_ in auto)
+        print(f"backward (192, 128) S={s}: max|d(dq,dk,dv)| vs plain "
+              f"{err:.3e}, grads vs autograd of the plain attention "
+              f"{auto_err:.3e}")
+    time_bwd_latent()
     for d in (128, 256):
-        print(f"backward layout at D={d}: {att.bwd_layout(d)} (held to the "
-              f"library's at the first launch); clusters of {d // 64} CTAs "
-              f"the card runs at once: {att.bwd_max_clusters(d)}")
         # S around the tiles (64 keys a cluster, 64 queries a tile)
         for s in (40, 63, 64, 65, 127, 129, 512, 544, 1000, 1024, 2049):
             qkv, mask, cot = _flash_case(2, s, d, seed=s + d)

@@ -32,7 +32,11 @@ from avsum_torch.models.decoder import (
     rope_table,
 )
 from avsum_torch.models.scorer import AVScorer, make_model, make_temporal
-from avsum_torch.ops.attention import attention_plain, flash_attention_padded
+from avsum_torch.ops.attention import (
+    FlashAttention,
+    attention_plain,
+    flash_attention,
+)
 from avsum_torch.train import steps
 from avsum_torch.train.config import ModelConfig, load_config
 from avsum_torch.train.trainer import Trainer
@@ -128,21 +132,29 @@ def test_mla_matches_reference(pad):
 
 
 def test_padded_flash_attention_is_exact_at_latent_widths():
+    """Attention at latent attention's own widths, q/k 192 and v 128:
+    ``flash_attention`` and its autograd Function (K2's and the fused
+    backward's plain versions on the CPU: the LSE saved, delta at Dv, the
+    scale Dqk^-1/2) against autograd of the materialized attention, with a
+    padded tail, the cotangent zero there as the scorer leaves it."""
     gen = torch.Generator().manual_seed(5)
     q, k = (torch.randn(1, 40, 3, 192, generator=gen) for _ in range(2))
     v = torch.randn(1, 40, 3, 128, generator=gen)
     mask = torch.ones(1, 40)
     mask[0, 31:] = 0
+    cot = torch.randn(1, 40, 3, 128, generator=gen) * mask[..., None, None]
     qs = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    qp = [t.clone().requires_grad_(True) for t in (q, k, v)]
     want = attention_plain(*qs, mask)
-    got = flash_attention_padded(*qp, mask)
-    assert got.shape == (1, 40, 3, 128)
-    torch.testing.assert_close(got, want, **VAL)
-    want.sum().backward()
-    got.sum().backward()
-    for a, b in zip(qp, qs):
-        torch.testing.assert_close(a.grad, b.grad, **GRAD)
+    (want * cot).sum().backward()
+    for route in (flash_attention, FlashAttention.apply):
+        qp = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = route(*qp, mask)
+        assert got.shape == (1, 40, 3, 128)
+        torch.testing.assert_close(got, want, **VAL)
+        (got * cot).sum().backward()
+        for a, b in zip(qp, qs):
+            assert a.grad.shape == b.grad.shape
+            torch.testing.assert_close(a.grad, b.grad, **GRAD)
 
 
 def test_router_matches_reference_with_a_correction_bias():

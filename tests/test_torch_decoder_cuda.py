@@ -1,8 +1,8 @@
 """The decoder encoder's card paths (``models/decoder.py``) against their
-plain versions: MLA's attention through K2 and the fused backward,
-zero-padded from q/k 192 and v 128 to 256
-(``ops/attention.py::flash_attention_padded``), against the materialized
-``attention_plain`` at S >= 512, values and gradients; a whole latent
+plain versions: MLA's attention through K2 and the fused backward at its
+own widths, q/k 192 and v 128 (``ops/attention.py::flash_attention``),
+against the materialized ``attention_plain`` at S >= 512, values and
+gradients; a whole latent
 attention layer at its published widths through the kernels and
 materialized; and the sparse dispatch of an MoE layer holding 16 of 64
 experts against the reference's held share (``tests/reference_decoder.py``).
@@ -28,7 +28,7 @@ from avsum_torch.models.decoder import LatentAttention, SparseMoE, rope_table
 from avsum_torch.ops.attention import (
     attention_plain,
     flash_attention,
-    flash_attention_padded,
+    flash_bwd,
 )
 from avsum_torch.train.config import ModelConfig
 
@@ -49,22 +49,30 @@ def cuda():
 
 @pytest.mark.parametrize("s,real", [(512, 512), (1024, 901), (2049, 2049)])
 def test_padded_flash_matches_plain_at_latent_widths(cuda, s, real):
+    """q, k [2, S, 16, 192] and v [2, S, 16, 128], v a view of the second
+    half of a [.., 256] tensor as MLA's kv_b projection hands it; batch
+    row 0 real to ``real`` shots, row 1 fully masked: one K2 launch and one
+    backward launch at (192, 128), no padding."""
     gen = torch.Generator(device=cuda).manual_seed(s)
-    q, k = (torch.randn(1, s, 16, 192, generator=gen, device=cuda)
+    q, k = (torch.randn(2, s, 16, 192, generator=gen, device=cuda)
             for _ in range(2))
-    v = torch.randn(1, s, 16, 128, generator=gen, device=cuda)
-    mask = (torch.arange(s, device=cuda) < real).float()[None]
-    ours = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = (flash_attention.launches,)
-    got = flash_attention_padded(*ours, mask)
-    assert flash_attention.launches == before[0] + 1
-    want = attention_plain(*plain, mask)
+    kv = torch.randn(2, s, 16, 256, generator=gen, device=cuda)
+    mask = (torch.arange(s, device=cuda) < real).float()[None].repeat(2, 1)
+    mask[1] = 0.0
+    ours = [t.clone().requires_grad_(True) for t in (q, k, kv)]
+    plain = [t.clone().requires_grad_(True) for t in (q, k, kv)]
+    before = (flash_attention.launches, flash_bwd.launches,
+              flash_attention.widths[192, 128])
+    got = flash_attention(ours[0], ours[1], ours[2][..., 128:], mask)
+    want = attention_plain(plain[0], plain[1], plain[2][..., 128:], mask)
+    assert got.shape == (2, s, 16, 128)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     cot = torch.randn(got.shape, generator=gen, device=cuda)
     cot = cot * mask[..., None, None]
     (got * cot).sum().backward()
     (want * cot).sum().backward()
+    assert (flash_attention.launches, flash_bwd.launches,
+            flash_attention.widths[192, 128]) == tuple(n + 1 for n in before)
     for a, b in zip(ours, plain):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
 
@@ -79,9 +87,9 @@ def test_latent_attention_layer_kernel_against_materialized(cuda):
     mask = (torch.arange(s, device=cuda) < 1000).float()[None]
     rope = rope_table(s, 64, MOONLIGHT.rope_theta, cuda)
     xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
-    before = flash_attention.launches
+    before = flash_attention.widths[192, 128]
     got = kernel(xk, mask, rope)
-    assert flash_attention.launches == before + 1
+    assert flash_attention.widths[192, 128] == before + 1
     want = plain(xp, mask, rope)
     real = mask[0].bool()
     torch.testing.assert_close(got[:, real], want[:, real], rtol=1e-4,

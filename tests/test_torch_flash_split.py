@@ -220,11 +220,12 @@ def test_forward_one_tf32_pass_misses_k2_tol(forward_case):
     assert _worst_k2(emulate_forward(*inputs, passes=1), want) > 1.0
 
 
-# The fused backward (csrc/flash_bwd.cu): a cluster of D / 64 CTAs owns 64
-# keys; CTA c forms the partial S_c = Q_c K_c^T and dP_c = dO_c V_c^T over
-# its 64 columns (one run of 8 k-steps, A the streamed chunk by row, B the
-# resident planes), the cluster sums the partials in float32 as
-# (p0 + p1) + (p2 + p3) (every CTA the same sum); P = exp(S * scale - LSE), read back by the dS group as big + small
+# The fused backward (csrc/flash_bwd.cu): a cluster of Dqk / 64 CTAs owns
+# 64 keys; CTA c forms the partial S_c = Q_c K_c^T and dP_c = dO_c V_c^T
+# over its 64 columns of Dqk and of Dv (one run of 8 k-steps, A the
+# streamed chunk by row, B the resident planes; at (192, 128) CTA 2's dP_c
+# is zero), the cluster sums the partials in float32 as p0 + p1,
+# (p0 + p1) + p2 or (p0 + p1) + (p2 + p3) (every CTA the same sum); P = exp(S * scale - LSE), read back by the dS group as big + small
 # from its planes; dS = P (dP - delta); dV_c^T += dO_c^T P and dK_c^T +=
 # Q_c^T dS one run a 64-query tile (A the chunk by column, B the P and dS
 # planes); dQ_c = dS K_c one run a key block (A dS truncated in registers,
@@ -251,13 +252,15 @@ def _cluster_sum(a_rows, b_rows, passes):
                      passes=passes) for c in range(0, a_rows.shape[1], 64)]
     if len(parts) == 2:
         return parts[0] + parts[1]
+    if len(parts) == 3:
+        return (parts[0] + parts[1]) + parts[2]
     return (parts[0] + parts[1]) + (parts[2] + parts[3])
 
 
 def emulate_backward(q, k, v, do, lse, delta, passes=3, seed=0):
-    """q, k, v, do [S, D] float32, lse and delta [S] -> (dk, dv) [64, D]
-    of key block BWD_BLOCK_AT and dq [64, D] of query tile BWD_TILE_AT, as
-    the fused kernel computes them."""
+    """q, k [S, Dqk], v, do [S, Dv] float32, lse and delta [S] -> (dk
+    [64, Dqk], dv [64, Dv]) of key block BWD_BLOCK_AT and dq [64, Dqk] of
+    query tile BWD_TILE_AT, as the fused kernel computes them."""
     s_len, d = q.shape
     scale = np.float32(d ** -0.5)
     kb = slice(BWD_BLOCK_AT * BWD_KEYS, (BWD_BLOCK_AT + 1) * BWD_KEYS)
@@ -274,7 +277,7 @@ def emulate_backward(q, k, v, do, lse, delta, passes=3, seed=0):
     # dV^T and dK^T of the key block over every query tile
     p, ds = p_ds(slice(None), kb)
     dv = np.concatenate([emulate(do[:, c:c + 64], p, passes=passes)
-                         for c in range(0, d, 64)]).T
+                         for c in range(0, do.shape[1], 64)]).T
     dk = np.concatenate([emulate(q[:, c:c + 64], ds, passes=passes)
                          for c in range(0, d, 64)]).T * scale
     # dQ of the query tile: a [64 x 64] block a key block and CTA, summed
@@ -291,14 +294,15 @@ def emulate_backward(q, k, v, do, lse, delta, passes=3, seed=0):
     return dq, dk.astype(np.float32), dv.astype(np.float32)
 
 
-def _backward_case(d, s=S, seed=5):
-    """Unit-normal q, k, v, dO [S, D] and the forward's LSE and delta =
-    rowsum(dO o O) in float32 (from float32 products, row block by row
-    block); -> the inputs and the float64 gradients (dq of the query tile,
-    dk and dv of the key block) from the same inputs."""
+def _backward_case(widths, s=S, seed=5):
+    """Unit-normal q, k [S, Dqk], v, dO [S, Dv] and the forward's LSE and
+    delta = rowsum(dO o O) in float32 (from float32 products, row block by
+    row block); -> the inputs and the float64 gradients (dq of the query
+    tile, dk and dv of the key block) from the same inputs."""
+    d, dv = widths
     rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.standard_normal((s, d)).astype(np.float32)
-                   for _ in range(4))
+    q, k, v, do = (rng.standard_normal((s, w)).astype(np.float32)
+                   for w in (d, d, dv, dv))
     scale = d ** -0.5
     lse = np.empty(s, np.float32)
     delta = np.empty(s, np.float32)
@@ -324,15 +328,17 @@ def _backward_case(d, s=S, seed=5):
     return (q, k, v, do, lse, delta), (dq, dk, dv)
 
 
-@pytest.fixture(scope="module", params=[128, 256])
+@pytest.fixture(scope="module", params=[
+    pytest.param((128, 128), id="128"), pytest.param((256, 256), id="256"),
+    pytest.param((192, 128), id="192-128")])
 def backward_case(request):
     return _backward_case(request.param)
 
 
 def test_fused_backward_meets_b34_tol_at_the_hour_step(backward_case):
     """dq, dk and dv at S = 7168 (112 query tiles, 112 key blocks, the
-    cluster's 2 or 4 partial sums), D = 128 and 256, the dQ blocks summed
-    in a shuffled order."""
+    cluster's 2, 3 or 4 partial sums), D = 128 and 256 and (Dqk, Dv) =
+    (192, 128), the dQ blocks summed in a shuffled order."""
     inputs, want = backward_case
     got = emulate_backward(*inputs)
     worst = [_worst(g, w) for g, w in zip(got, want)]

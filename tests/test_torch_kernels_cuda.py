@@ -3,7 +3,8 @@
 (flash-attention forward, in its 32- and 64-query blocks) and the fused
 backward (dQ, dK, dV in one launch) against their plain versions, and
 K2 -> the backward through the autograd Function against autograd of the
-plain attention.
+plain attention; the flash kernels at the square head widths and at
+latent attention's q/k 192, v 128.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. The card machine has
 no JAX, so this file imports none and runs without the suite's conftest:
@@ -107,6 +108,23 @@ def _bwd_case(cuda, b, s, d, seed):
     return qkv, mask, cot * mask[:, :, None, None]
 
 
+def _latent_case(cuda, b, s, seed):
+    """q, k [B, S, 4, 192] (strided views of one tensor) and v
+    [B, S, 4, 128] (the second half of a [.., 256] tensor, as MLA's kv_b
+    projection hands it), with _bwd_case's mask and a [B, S, 4, 128]
+    cotangent zeroed at masked queries."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qk = torch.randn(b, s, 2, 4, 192, device=cuda, generator=g)
+    kv = torch.randn(b, s, 4, 256, device=cuda, generator=g)
+    mask = torch.ones(b, s, device=cuda)
+    mask[0, s - s // 5:] = 0.0
+    if b > 1:
+        mask[1] = 0.0
+    cot = torch.randn(b, s, 4, 128, device=cuda, generator=g)
+    q, k = qk.unbind(2)
+    return (q, k, kv[..., 128:]), mask, cot * mask[:, :, None, None]
+
+
 def _unaligned(t):
     """A copy of ``t`` as a view that is not 16-byte aligned."""
     flat = torch.zeros(t.numel() + 1, device=t.device)
@@ -142,6 +160,21 @@ def test_flash_fwd_kernel_matches_plain(cuda, d, b, s, rows):
     before = flash_attention.launches
     out, lse = flash_attention_fwd(q, k, v, mask)
     assert flash_attention.launches == before + 1
+    ref, ref_lse = attention_fwd_plain(q, k, v, mask)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,rows", FWD_CASES)
+def test_flash_fwd_kernel_matches_plain_at_latent_widths(cuda, b, s, rows):
+    """K2 at q/k 192, v 128 against its plain version, on K2's cases:
+    one launch, counted at (192, 128)."""
+    (q, k, v), mask, _ = _latent_case(cuda, b, s, seed=5 * s + b)
+    before = (flash_attention.launches, flash_attention.widths[192, 128])
+    out, lse = flash_attention_fwd(q, k, v, mask)
+    assert (flash_attention.launches,
+            flash_attention.widths[192, 128]) == (before[0] + 1, before[1] + 1)
+    assert out.shape == (b, s, 4, 128)
     ref, ref_lse = attention_fwd_plain(q, k, v, mask)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
@@ -190,6 +223,27 @@ def test_flash_bwd_kernel_matches_plain(cuda, d, s, layout):
                                    msg=lambda m: f"{name}: {m}")
 
 
+@pytest.mark.parametrize("layout", ["views", "unaligned"])
+@pytest.mark.parametrize("s", [40, 544, 1024, 2049, *BWD_EDGES])
+def test_flash_bwd_kernel_matches_plain_at_latent_widths(cuda, s, layout):
+    """The backward kernel at q/k 192, v 128 (clusters of 3 CTAs, the third
+    without V) against its plain version: dq, dk [.., 192], dv [.., 128]
+    from one launch, on the square widths' cases."""
+    (q, k, v), mask, cot = _latent_case(cuda, 2, s, seed=7 * s)
+    out, lse = flash_attention_fwd(q, k, v, mask)
+    delta = (cot * out).sum(-1).transpose(1, 2).contiguous()
+    if layout == "unaligned":
+        q, v, cot = _unaligned(q), _unaligned(v), _unaligned(cot)
+    before = flash_bwd.launches
+    got = flash_bwd(q, k, v, cot, mask, lse, delta)
+    assert flash_bwd.launches == before + 1
+    want = flash_bwd_plain(q, k, v, cot, mask, lse, delta)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+
+
 def test_flash_bwd_wgmmas_are_not_serialized(cuda):
     """ptxas runs K2's and the backward's wgmmas back to back: it
     serializes them (note C7514, each waiting for the one before) when a
@@ -205,8 +259,14 @@ def test_flash_bwd_wgmmas_are_not_serialized(cuda):
         assert "C7514" not in log, log
 
 
+# the width pairs (Dqk, Dv) the kernels take, named by D where square
+WIDTHS = [pytest.param((128, 128), id="128"),
+          pytest.param((256, 256), id="256"),
+          pytest.param((192, 128), id="192-128")]
+
+
 @pytest.mark.parametrize("rows", [32, 64])
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", WIDTHS)
 def test_flash_fwd_layout_matches_the_library(cuda, d, rows):
     """The library's K2 tiling is the wrapper's (fwd_layout), at both
     block sizes."""
@@ -214,21 +274,21 @@ def test_flash_fwd_layout_matches_the_library(cuda, d, rows):
 
     lib = attention._fwd_lib()
     out = (ctypes.c_long * 5)()
-    assert lib.avsum_flash_fwd_layout(d, rows, out) == 0
-    attention.check_fwd_layout(out, d, rows)
+    assert lib.avsum_flash_fwd_layout(*d, rows, out) == 0
+    attention.check_fwd_layout(out, *d, rows)
 
 
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", WIDTHS)
 def test_flash_bwd_layout_matches_the_library(cuda, d):
     """The library's backward tiling is the wrapper's (bwd_layout), and
-    the card runs its clusters (D / 64 CTAs of one GPC each)."""
+    the card runs its clusters (Dqk / 64 CTAs of one GPC each)."""
     from avsum_torch.ops import attention
 
     lib = attention._bwd_lib()
     out = (ctypes.c_long * 6)()
-    assert lib.avsum_flash_bwd_layout(d, out) == 0
-    attention.check_bwd_layout(out, d)
-    assert attention.bwd_max_clusters(d) > 0
+    assert lib.avsum_flash_bwd_layout(*d, out) == 0
+    attention.check_bwd_layout(out, *d)
+    assert attention.bwd_max_clusters(*d) > 0
 
 
 @pytest.mark.parametrize("d", [128, 256])
@@ -240,9 +300,9 @@ def test_flash_bwd_train_shape_waves_on_the_card(cuda, d):
     4)."""
     from avsum_torch.ops import attention
 
-    layout = attention.bwd_layout(d)
+    layout = attention.bwd_layout(d, d)
     clusters = math.ceil(1024 / layout["block_keys"]) * 4
-    waves = math.ceil(clusters / attention.bwd_max_clusters(d))
+    waves = math.ceil(clusters / attention.bwd_max_clusters(d, d))
     assert waves <= {128: 1, 256: 3}[d]
 
 
@@ -260,6 +320,28 @@ def test_flash_backward_kernels_match_plain(cuda, d, s):
         out = fn(*leaf.unbind(2), mask)
         (out * cot).sum().backward()
         return leaf.grad.unbind(2)
+
+    counts = (flash_attention.launches, flash_bwd.launches)
+    got = grads(flash_attention)
+    assert (flash_attention.launches,
+            flash_bwd.launches) == tuple(n + 1 for n in counts)
+    want = grads(attention_plain)
+    for name, a, b in zip("qkv", got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("s", [512, 545, 40, 544, 1024, 2049, *BWD_EDGES])
+def test_flash_backward_kernels_match_plain_at_latent_widths(cuda, s):
+    """dq, dk, dv at q/k 192, v 128 through K2 -> the backward against
+    autograd of the plain version; v a view of a wider tensor, as MLA's
+    kv_b projection hands it; one launch of each."""
+    (q, k, v), mask, cot = _latent_case(cuda, 2, s, seed=11 * s)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves, mask) * cot).sum().backward()
+        return [t.grad for t in leaves]
 
     counts = (flash_attention.launches, flash_bwd.launches)
     got = grads(flash_attention)
