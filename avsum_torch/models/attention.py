@@ -1,24 +1,30 @@
 """Mask-aware multi-head self- and cross-attention
-(``avsum_tpu/models/attention.py``).
+(``avsum_tpu/models/attention.py``), and :func:`attend`, the one place the
+port chooses how an attention runs. In the JAX module's order:
 
-Self-attention takes the JAX module's dispatch, in its order:
-0. with ``ring_mesh`` (a mesh whose ``seq`` axis is > 1; x is this
-   rank's block of the shot axis), ring attention over that axis
+0. with ``ring_mesh`` (a mesh whose ``seq`` axis is > 1; q, k, v are
+   this rank's block of the shot axis), ring attention over that axis
    (:func:`avsum_torch.parallel.ring.ring_attention`), in place of the
    kernels;
-1. with the kernel enabled (``use_kernel``, resolved from
-   ``model.use_pallas`` by :func:`kernel_enabled`), a sequence of a
-   concrete length of at least ``FLASH_MIN_SEQ`` positions goes through
+1. with the kernel enabled (``kernel``, resolved from ``model.use_pallas``
+   by :func:`kernel_enabled`), a sequence of a concrete length of at
+   least ``FLASH_MIN_SEQ`` positions goes through
    :func:`avsum_torch.ops.attention.flash_attention` (kernel K2 and the
-   backward kernel on a CUDA tensor; its plain version on a CPU tensor);
-2. else, with ``chunk_size`` > 0, :func:`avsum_torch.ops.chunked.chunked_attention`
-   (float32 q, k, v and probabilities; the scorer gives a chunk size to
-   its fusion attention only, as the JAX scorer does);
-3. else the inline materialized softmax, whose probabilities are rounded
-   to the compute dtype before the product with V. With bfloat16 that is
-   not the chunked path's math.
-Logits and softmax are float32 whatever the compute dtype.
-:class:`MultiHeadCrossAttention` always takes the inline softmax.
+   fused backward on a CUDA tensor; its float32 plain version on a CPU
+   tensor);
+2. else, with ``chunk`` > 0, the materialized softmax walked in query
+   chunks (float32 q, k, v and probabilities; the scorer gives a chunk
+   size to its fusion attention only, as the JAX scorer does);
+3. else the materialized softmax whose probabilities are rounded to the
+   compute dtype before the product with V. With bfloat16 that is not
+   the chunked path's math.
+
+Both materialized routes are :func:`avsum_torch.ops.attention.attention_plain`,
+with float32 logits and softmax whatever the compute dtype. A symbolic S
+(``torch.export``) takes a materialized route, as the JAX package's
+exported artifact does. :class:`MultiHeadCrossAttention` passes no
+kernel, chunk or mesh, so it always takes route 3; latent attention
+(``models/decoder.py``) passes float32 as its dtype, no chunk and no mesh.
 """
 
 from __future__ import annotations
@@ -28,8 +34,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from avsum_torch.ops.attention import NEG_INF, flash_attention
-from avsum_torch.ops.chunked import chunked_attention
+from avsum_torch.ops.attention import attention_plain, flash_attention
 from avsum_torch.parallel.ring import ring_attention
 
 FLASH_MIN_SEQ = 512
@@ -44,25 +49,21 @@ def kernel_enabled(flag: Optional[bool] = None) -> bool:
     return flag is not False
 
 
-def attention_bias(mask: Optional[torch.Tensor], dtype=torch.float32):
-    """[B, S] validity mask -> [B, 1, 1, S] additive key bias."""
-    if mask is None:
-        return None
-    return torch.where(mask.bool(), 0.0, NEG_INF).to(dtype)[:, None, None, :]
-
-
-def inline_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: Optional[torch.Tensor], dtype) -> torch.Tensor:
-    """[B, S, H, D] q and [B, T, H, D] k, v -> [B, S, H, D] float32: float32
-    logits and softmax, the probabilities rounded to ``dtype``, their
-    product with V summed in float32."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    logits = logits * q.shape[-1] ** -0.5
-    bias = attention_bias(mask)
-    if bias is not None:
-        logits = logits + bias
-    probs = torch.softmax(logits, dim=-1).to(dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: Optional[torch.Tensor], *, dtype: torch.dtype,
+           kernel: bool, chunk: int = 0, ring_mesh=None) -> torch.Tensor:
+    """q [B, S, H, Dqk], k [B, T, H, Dqk], v [B, T, H, Dv], ``mask`` an
+    optional [B, T] key validity -> [B, S, H, Dv] float32, by the route
+    the module docstring sets out; ``dtype`` is the compute dtype route 3
+    rounds the probabilities to."""
+    s = q.shape[1]
+    if ring_mesh is not None:
+        return ring_attention(q, k, v, ring_mesh, mask)
+    if kernel and isinstance(s, int) and s >= FLASH_MIN_SEQ:
+        return flash_attention(q, k, v, mask)
+    if chunk > 0:
+        return attention_plain(q, k, v, mask, chunk=chunk)
+    return attention_plain(q, k, v, mask, probs_dtype=dtype)
 
 
 class MultiHeadCrossAttention(nn.Module):
@@ -89,7 +90,7 @@ class MultiHeadCrossAttention(nn.Module):
         q = self.q(x.to(self.dtype)).view(b, s, h, e // h)
         k, v = self.kv(y.to(self.dtype)).view(b, y.shape[1], 2, h,
                                               e // h).unbind(2)
-        ctx = inline_attention(q, k, v, mask, self.dtype)
+        ctx = attend(q, k, v, mask, dtype=self.dtype, kernel=False)
         out = self.out(ctx.to(self.dtype).reshape(b, s, e))
         if mask is not None:
             out = out * mask.to(out.dtype)[..., None]
@@ -123,16 +124,8 @@ class MultiHeadSelfAttention(nn.Module):
         d = e // h
         qkv = self.qkv(x.to(self.dtype)).view(b, s, 3, h, d)
         q, k, v = qkv.unbind(2)  # [B, S, H, D] strided views
-        # a symbolic S (torch.export) takes the materialized softmax, as
-        # the JAX package's exported artifact does
-        if self.ring_mesh is not None:
-            ctx = ring_attention(q, k, v, self.ring_mesh, mask)
-        elif self.use_kernel and isinstance(s, int) and s >= FLASH_MIN_SEQ:
-            ctx = flash_attention(q, k, v, mask)
-        elif self.chunk_size > 0:
-            ctx = chunked_attention(q, k, v, mask, self.chunk_size)
-        else:
-            ctx = inline_attention(q, k, v, mask, self.dtype)
+        ctx = attend(q, k, v, mask, dtype=self.dtype, kernel=self.use_kernel,
+                     chunk=self.chunk_size, ring_mesh=self.ring_mesh)
         out = self.out(ctx.to(self.dtype).reshape(b, s, e))
         if mask is not None:
             out = out * mask.to(out.dtype)[..., None]

@@ -22,11 +22,10 @@ the columns de-interleaved (evens, then odds), then x cos + rotate_half(x)
 sin. Scores are scaled by (qk_nope + qk_rope)^-1/2. One departure from
 the source: attention is bidirectional over the video's real shots,
 padded keys masked, not causal, since the scorer judges each shot
-against the whole video, as the port's attention encoder does. With the
-kernels enabled and S >= 512 it runs through K2 and the fused backward
-at q/k 192 and v 128, unpadded
-(:func:`avsum_torch.ops.attention.flash_attention`), else materialized
-(:func:`~avsum_torch.ops.attention.attention_plain`).
+against the whole video, as the port's attention encoder does. It runs
+by :func:`avsum_torch.models.attention.attend`'s dispatch, with float32
+probabilities on its materialized route; its kernels take q/k 192 and
+v 128 unpadded.
 
 The MoE layer: a float32 router of n_routed_experts outputs over the
 float32 tokens, sigmoid scores; the top num_experts_per_tok experts by
@@ -67,8 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from avsum_torch.models.attention import FLASH_MIN_SEQ
-from avsum_torch.ops.attention import attention_plain, flash_attention
+from avsum_torch.models.attention import attend
 from avsum_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 from avsum_torch.train.config import ModelConfig
 from avsum_torch.utils.profiling import annotate
@@ -149,10 +147,8 @@ class LatentAttention(nn.Module):
             q = torch.cat([q_nope, apply_rope(q_pe, cos, sin)], dim=-1)
             k_pe = apply_rope(k_pe[:, :, None, :], cos, sin)
             k = torch.cat([k_nope, k_pe.expand(b, s, h, self.rope)], dim=-1)
-            if self.use_kernel and isinstance(s, int) and s >= FLASH_MIN_SEQ:
-                ctx = flash_attention(q, k, v, mask)
-            else:
-                ctx = attention_plain(q, k, v, mask)
+            ctx = attend(q, k, v, mask, dtype=torch.float32,
+                         kernel=self.use_kernel)
             return self.o_proj(ctx.to(x.dtype).reshape(b, s, h * self.v_dim))
 
 

@@ -17,8 +17,9 @@
 Module names follow the Flax tree (visual_fc.dense, visual_temporal.fwd or
 visual_temporal.blocks.0, cross_attention.qkv, v_attends_a.q, scorer_hidden,
 scorer_out). ``model.use_pallas`` reaches every self-attention through
-:func:`avsum_torch.models.attention.kernel_enabled`; the MoE blocks, the
-stages and cross fusion materialize their attention as the JAX ones do.
+:func:`avsum_torch.models.attention.kernel_enabled`, and each attention
+runs by :func:`avsum_torch.models.attention.attend`'s dispatch; the MoE
+blocks, the stages and cross fusion take no kernel, as the JAX ones do.
 Dropout is active only in ``train()`` mode and draws its masks from the
 generator passed to ``forward``.
 
@@ -179,12 +180,8 @@ class AVScorer(nn.Module):
             gen = generator if generator is not None else torch.default_generator
         v = self.visual_fc(visual, next_seed(gen))
         a = self.audio_fc(audio, next_seed(gen))
-        if self.config.temporal_encoder == "bilstm":
-            v = self.visual_temporal(v, mask)
-            a = self.audio_temporal(a, mask)
-        else:
-            v = self.visual_temporal(v, mask, gen)
-            a = self.audio_temporal(a, mask, gen)
+        v = self.visual_temporal(v, mask, gen)
+        a = self.audio_temporal(a, mask, gen)
         if self.config.fusion == "cross":
             v, full_mask = gather_shots(v, mask, self.mesh)
             a, _ = gather_shots(a, None, self.mesh)

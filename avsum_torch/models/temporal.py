@@ -189,8 +189,11 @@ class BiLSTM(nn.Module):
         self.fwd = LSTMCellScan(in_features, half, dtype, reverse=False)
         self.bwd = LSTMCellScan(in_features, half, dtype, reverse=True)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``gen`` is accepted for the encoders' common call and unused:
+        the BiLSTM has no dropout."""
+        del gen
         x, mask = gather_shots(x, mask, self.mesh)
         out = torch.cat([self.fwd(x, mask), self.bwd(x, mask)], dim=-1)
         if mask is not None:

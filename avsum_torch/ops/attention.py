@@ -50,6 +50,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from avsum_torch.build import load_kernel
 
@@ -68,7 +69,7 @@ SM_SMEM = 233_472  # an H100 SM's shared memory; a block also reserves 1 KB
 
 
 def _logits(q, k, mask):
-    """[B, H, S, S] float32 scores + key bias."""
+    """[B, H, S, T] float32 scores + key bias."""
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
     if mask is not None:
@@ -82,11 +83,33 @@ def attention_plain(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    probs_dtype: torch.dtype = torch.float32,
+    chunk: int = 0,
 ) -> torch.Tensor:
-    """The plain version of the whole op: the materialized softmax of
-    ``avsum_tpu/ops/attention.py::reference_attention``."""
-    probs = torch.softmax(_logits(q, k, mask), dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    """The port's materialized softmax (``avsum_tpu/ops/attention.py::
+    reference_attention``): q [B, S, H, Dqk], k [B, T, H, Dqk], v [B, T,
+    H, Dv], ``mask`` an optional [B, T] key validity -> [B, S, H, Dv]
+    float32. Float32 logits and softmax, the probabilities rounded to
+    ``probs_dtype``, their product with V summed in float32.
+
+    With ``chunk`` > 0 the query axis is walked in chunks of that many
+    rows, as the JAX package's blockwise attention walks it, so the
+    largest live score block is [B, H, chunk, T]: S padded up to a
+    multiple of ``chunk`` and the pad sliced off again; the real rows
+    are exact. A symbolic S (``torch.export``) cannot be cut into a
+    Python count of chunks and is taken as one."""
+    k, v = k.float(), v.float()
+
+    def one_chunk(qc: torch.Tensor) -> torch.Tensor:
+        probs = torch.softmax(_logits(qc, k, mask), dim=-1).to(probs_dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v)
+
+    s = q.shape[1]
+    if chunk <= 0 or not isinstance(s, int):
+        return one_chunk(q)
+    qp = F.pad(q.float(), (0, 0, 0, 0, 0, (-s) % chunk))
+    return torch.cat([one_chunk(qc) for qc in qp.split(chunk, dim=1)],
+                     dim=1)[:, :s]
 
 
 def attention_fwd_plain(q, k, v, mask=None):

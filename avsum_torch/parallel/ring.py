@@ -22,10 +22,9 @@ from typing import Optional
 
 import torch
 
+from avsum_torch.ops.attention import NEG_INF
 from avsum_torch.parallel.comm import ring_pass
 from avsum_torch.parallel.mesh import AXIS_SEQ
-
-NEG_INF = -1e30
 
 
 def _scores(q, k, bias, scale):

@@ -1871,20 +1871,21 @@ def config4_hour_chunked(card: str) -> None:
     from avsum_torch.models import attention as attention_module
     from avsum_torch.ops import attention as att
 
-    chunked = attention_module.chunked_attention
+    plain = attention_module.attention_plain
     calls = []
 
-    def counted(*args):
-        calls.append(args[-1])
-        return chunked(*args)
+    def counted(*args, chunk=0, **kwargs):
+        if chunk > 0:
+            calls.append(chunk)
+        return plain(*args, chunk=chunk, **kwargs)
 
-    attention_module.chunked_attention = counted
+    attention_module.attention_plain = counted
     _reset_train_counts()
     try:
         hour_step(["model.use_pallas=false"], label=f"phase 11 (d) "
                   f"use_pallas=false ({card}): hour step", profile=False)
     finally:
-        attention_module.chunked_attention = chunked
+        attention_module.attention_plain = plain
     print(f"phase 11 (d): chunked fusion calls {len(calls)} (chunk "
           f"{set(calls)}), kernel launches {_train_counts()}")
     if not calls or set(calls) != {512} or att.flash_attention.launches:

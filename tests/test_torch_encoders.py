@@ -41,14 +41,13 @@ from avsum_torch.models import attention as attention_module
 from avsum_torch.models.attention import (
     MultiHeadCrossAttention,
     MultiHeadSelfAttention,
-    inline_attention,
 )
 from avsum_torch.models.scorer import make_model
 from avsum_torch.models.temporal import (
     PipelinedAttentionEncoder,
     TemporalConvEncoder,
 )
-from avsum_torch.ops.chunked import chunked_attention
+from avsum_torch.ops.attention import attention_plain
 from avsum_torch.train.config import ModelConfig
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -157,8 +156,8 @@ def test_chunked_attention_matches_jax(s, chunk):
     mask[0, s // 3:] = 0.0
     with jax.default_matmul_precision("highest"):
         ref = np.asarray(jax_chunked(q, k, v, mask, chunk_size=chunk))
-    got = chunked_attention(*(torch.from_numpy(a) for a in (q, k, v, mask)),
-                            chunk_size=chunk)
+    got = attention_plain(*(torch.from_numpy(a) for a in (q, k, v, mask)),
+                          chunk=chunk)
     assert got.shape == (2, s, 2, 8) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
@@ -185,14 +184,18 @@ def test_f7_chunked_context_keeps_float32_probabilities(monkeypatch):
                                      chunk_size=16))
     qt, kt, vt = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
     mt = torch.from_numpy(mask)
-    chunked = chunked_attention(qt, kt, vt, mt, chunk_size=16).numpy()
-    inline = inline_attention(qt, kt, vt, mt, torch.bfloat16).numpy()
+    chunked = attention_plain(qt, kt, vt, mt, chunk=16).numpy()
+    inline = attention_plain(qt, kt, vt, mt, torch.bfloat16).numpy()
     np.testing.assert_allclose(chunked, ref, **TOL)
     assert np.abs(inline - ref).max() > 1e-3  # F7
 
     calls = []
-    monkeypatch.setattr(attention_module, "chunked_attention",
-                        lambda *a: calls.append(a[-1]) or chunked_attention(*a))
+
+    def counted(*a, chunk=0, **kw):
+        calls.append(chunk)
+        return attention_plain(*a, chunk=chunk, **kw)
+
+    monkeypatch.setattr(attention_module, "attention_plain", counted)
     mhsa = MultiHeadSelfAttention(32, 4, torch.bfloat16, use_kernel=False,
                                   chunk_size=16).to(torch.bfloat16)
     with torch.no_grad():

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from avsum_torch.models.attention import inline_attention
+from avsum_torch.ops.attention import attention_plain
 from avsum_torch.parallel.mesh import MeshConfig, block_slices, host_cpu_mesh
 from avsum_torch.parallel.multihost import Ranks
 from avsum_torch.parallel.ring import ring_attention
@@ -75,7 +75,7 @@ def _plain(masking: str):
     q, k, v, cot, mask = _inputs(masking)
     qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     m = None if mask is None else torch.from_numpy(mask)
-    out = inline_attention(qt, kt, vt, m, torch.float32)
+    out = attention_plain(qt, kt, vt, m, torch.float32)
     out.backward(torch.from_numpy(cot))
     return out.detach().numpy(), *(t.grad.numpy() for t in (qt, kt, vt))
 
