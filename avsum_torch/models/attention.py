@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from avsum_torch.ops.attention import attention_plain, flash_attention
+from avsum_torch.ops.linear import Linear
 from avsum_torch.parallel.ring import ring_attention
 
 FLASH_MIN_SEQ = 512
@@ -79,9 +80,9 @@ class MultiHeadCrossAttention(nn.Module):
             raise ValueError("embed_dim must be divisible by num_heads")
         self.num_heads = num_heads
         self.dtype = dtype
-        self.q = nn.Linear(embed_dim, embed_dim)
-        self.kv = nn.Linear(embed_dim, 2 * embed_dim)
-        self.out = nn.Linear(embed_dim, embed_dim)
+        self.q = Linear(embed_dim, embed_dim)
+        self.kv = Linear(embed_dim, 2 * embed_dim)
+        self.out = Linear(embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -114,8 +115,8 @@ class MultiHeadSelfAttention(nn.Module):
         self.use_kernel = use_kernel
         self.chunk_size = chunk_size
         self.ring_mesh = ring_mesh
-        self.qkv = nn.Linear(embed_dim, 3 * embed_dim)
-        self.out = nn.Linear(embed_dim, embed_dim)
+        self.qkv = Linear(embed_dim, 3 * embed_dim)
+        self.out = Linear(embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -38,8 +38,9 @@ on every token. The layer holds ``moe_experts_held`` of the experts
 over all of them and adds its held experts' weighted outputs alone.
 Dispatch is sparse: the token-expert pairs sorted by expert, one read of
 the per-expert counts to the host, then for each held expert the
-SwiGLU over its rows alone (cuBLAS products), combined by ``index_add``;
-no capacity, no dropped pairs. Padded shots are routed to no expert.
+SwiGLU over its rows alone (``ops/linear.py`` products), combined by
+``index_add``; no capacity, no dropped pairs. Padded shots are routed to
+no expert.
 Each dispatch adds to the counters ``HeldExperts.routed_held`` (pairs
 computed here), ``.routed_total`` (pairs routed over every expert) and
 ``.host_syncs`` (its device-to-host reads), from the counts it reads
@@ -67,6 +68,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsum_torch.models.attention import attend
+from avsum_torch.ops.linear import Linear, linear
 from avsum_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 from avsum_torch.train.config import ModelConfig
 from avsum_torch.utils.profiling import annotate
@@ -101,8 +103,8 @@ class SwiGLU(nn.Module):
 
     def __init__(self, dim: int, width: int):
         super().__init__()
-        self.gate_up = nn.Linear(dim, 2 * width, bias=False)
-        self.down = nn.Linear(width, dim, bias=False)
+        self.gate_up = Linear(dim, 2 * width, bias=False)
+        self.down = Linear(width, dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate, up = self.gate_up(x).chunk(2, dim=-1)
@@ -122,15 +124,15 @@ class LatentAttention(nn.Module):
         self.rank = c.kv_lora_rank
         self.use_kernel = use_kernel
         dim = c.hidden_dim
-        self.q_proj = nn.Linear(dim, self.heads * (self.nope + self.rope),
-                                bias=False)
-        self.kv_a_proj_with_mqa = nn.Linear(dim, self.rank + self.rope,
-                                            bias=False)
+        self.q_proj = Linear(dim, self.heads * (self.nope + self.rope),
+                             bias=False)
+        self.kv_a_proj_with_mqa = Linear(dim, self.rank + self.rope,
+                                         bias=False)
         self.kv_a_layernorm = nn.RMSNorm(self.rank, eps=c.rms_norm_eps)
-        self.kv_b_proj = nn.Linear(self.rank,
-                                   self.heads * (self.nope + self.v_dim),
-                                   bias=False)
-        self.o_proj = nn.Linear(self.heads * self.v_dim, dim, bias=False)
+        self.kv_b_proj = Linear(self.rank,
+                                self.heads * (self.nope + self.v_dim),
+                                bias=False)
+        self.o_proj = Linear(self.heads * self.v_dim, dim, bias=False)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
@@ -165,7 +167,7 @@ class MoEGate(nn.Linear):
                              torch.zeros(n_experts))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        scores = torch.sigmoid(F.linear(x.float(), self.weight.float()))
+        scores = torch.sigmoid(linear(x.float(), self.weight.float()))
         choice = torch.topk(scores + self.e_score_correction_bias,
                             self.top_k, dim=-1, sorted=False).indices
         weights = scores.gather(1, choice)
@@ -216,8 +218,8 @@ class HeldExperts(nn.Module):
         # the whole stack for each expert
         for e, (gate_up, down) in enumerate(zip(self.gate_up.unbind(0),
                                                 self.down.unbind(0))):
-            gate, up = F.linear(xs[at:at + rows[e]], gate_up).chunk(2, dim=-1)
-            outs.append(F.linear(F.silu(gate) * up, down))
+            gate, up = linear(xs[at:at + rows[e]], gate_up).chunk(2, dim=-1)
+            outs.append(linear(F.silu(gate) * up, down))
             at += rows[e]
         y = torch.cat(outs) * weights.reshape(-1)[mine, None]
         return x.new_zeros(x.shape).index_add(0, tokens, y)

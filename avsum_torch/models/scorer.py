@@ -65,6 +65,7 @@ from avsum_torch.models.temporal import (
     next_seed,
     seq_split,
 )
+from avsum_torch.ops.linear import Linear
 from avsum_torch.parallel.comm import local_block
 from avsum_torch.parallel.mesh import (
     AXIS_MODEL,
@@ -113,7 +114,7 @@ class ModalityMLP(nn.Module):
         self.dtype = dtype
         self.rate = rate
         self.mesh = mesh
-        self.dense = nn.Linear(in_features, hidden)
+        self.dense = Linear(in_features, hidden)
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
@@ -159,8 +160,8 @@ class AVScorer(nn.Module):
                 2 * hid, config.num_heads, dtype, use_kernel,
                 config.chunk_size,
                 ring_mesh=mesh if seq_split(mesh) else None).to(dtype)
-        self.scorer_hidden = nn.Linear(2 * hid, config.scorer_hidden)
-        self.scorer_out = nn.Linear(config.scorer_hidden, 1)
+        self.scorer_hidden = Linear(2 * hid, config.scorer_hidden)
+        self.scorer_out = Linear(config.scorer_hidden, 1)
         for mod in (self.visual_fc, self.audio_fc, self.scorer_hidden):
             mod.to(dtype)
         self.tp_splits: Dict[str, Split] = (

@@ -59,6 +59,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from avsum_torch.models.attention import MultiHeadSelfAttention
+from avsum_torch.ops.linear import Linear
 from avsum_torch.parallel.comm import (
     copy_to,
     gather,
@@ -235,8 +236,8 @@ class AttentionBlock(nn.Module):
             dim, num_heads, dtype, use_kernel,
             ring_mesh=mesh if seq_split(mesh) else None)
         self.norm_1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.dense_0 = nn.Linear(dim, 4 * dim)
-        self.dense_1 = nn.Linear(4 * dim, dim)
+        self.dense_0 = Linear(dim, 4 * dim)
+        self.dense_1 = Linear(4 * dim, dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 seeds: Tuple[Optional[int], Optional[int]] = (None, None)

@@ -38,7 +38,12 @@ raising on failure:
    backward also at latent attention's q/k 192, v 128 on the same cases,
    and timed at the decoder's [1, 7168, 16, 192 / 128] beside the same
    inputs zero-padded to 256 through the square kernels (the route the
-   decoder took before the kernels took (192, 128));
+   decoder took before the kernels took (192, 128)); the Linear GEMM
+   through its wrapper on the forward, dX and dW of each main-path Linear
+   against float64 (``check_linear``), then timed there and at smaller
+   shapes (``time_linear``) beside its plain version, cuBLAS at
+   "highest" and the bound counting 3xTF32's passes and each FLOP once,
+   with the route's choice at each;
 7. one hour-scale train step on the card against the same step on the
    CPU (same parameters and batch, dropout 0): loss, every gradient and
    the parameters after 3 steps;
@@ -189,6 +194,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import io
 import json
 import logging
@@ -657,6 +663,143 @@ def time_bwd_latent(s: int = 7168, h: int = 16, iters: int = 5) -> dict:
     return t
 
 
+# (M, K, N) of the Linear products of the main path: the decoder's at
+# 7168 shots (MLA's projections, the dense SwiGLU, the shared experts, the
+# router), a held expert's ~672 rows, the hour cell's Linears; and, for the
+# route's rule, small ones below them
+LINEAR_SHAPES = (
+    (7168, 2048, 3072), (7168, 2048, 576), (7168, 512, 4096),
+    (7168, 2048, 2048), (7168, 2048, 22528), (7168, 11264, 2048),
+    (7168, 2048, 5632), (7168, 2816, 2048), (7168, 2048, 64),
+    (672, 2048, 2816), (672, 1408, 2048),
+    (7168, 4096, 512), (7168, 296, 512), (7168, 512, 1536),
+    (7168, 512, 2048), (7168, 2048, 512), (7168, 1024, 3072))
+LINEAR_RULE_SHAPES = (
+    (64, 512, 512), (128, 512, 512), (256, 512, 512), (544, 512, 512),
+    (1024, 512, 512), (2048, 512, 512), (3072, 512, 512), (4096, 512, 512),
+    (1024, 1024, 3072), (64, 2048, 64), (7168, 64, 64), (64, 2048, 2816),
+    (128, 2048, 2816), (256, 2048, 2816), (128, 1408, 2048),
+    (256, 1408, 2048), (384, 1408, 2048))
+
+
+def check_linear(shapes=LINEAR_SHAPES) -> None:
+    """The Linear products through the wrapper (``ops/linear.py``'s
+    ``linear``: the route, the autograd Function and ``product``) at each
+    main-path (M, K, N) on the card: Y = X W^T, dX = dY W and dW = dY^T X
+    against float64. Each must lie within 3 times cuBLAS float32's own
+    error against float64 (at least 1e-7 of the largest entry) and at
+    least 10 times below one TF32 pass's, as
+    ``tests/test_torch_kernels_cuda.py`` holds them; each shape must reach
+    the kernel, and launch it once for each product the route gives it."""
+    import torch
+
+    from avsum_torch.ops.linear import linear, route
+
+    def rel(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    misses = []
+    for m, k, n in shapes:
+        g = torch.Generator(device="cuda").manual_seed(m + 3 * k + 7 * n)
+        x = torch.randn(m, k, device="cuda", generator=g)
+        w = torch.randn(n, k, device="cuda", generator=g) / math.sqrt(k)
+        dy = torch.randn(m, n, device="cuda", generator=g)
+        routes = [route(x.device, torch.float32, *shape) for shape in (
+            (m, n, k), (m, k, n, True, False), (n, k, m, False, False))]
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = linear.launches
+        y = linear(xl, wl)
+        y.backward(dy)
+        launched = linear.launches - before
+        got = {"Y": y.detach(), "dX": xl.grad, "dW": wl.grad}
+        x64, w64, dy64 = x.double(), w.double(), dy.double()
+        want = {"Y": x64 @ w64.T, "dX": dy64 @ w64, "dW": dy64.T @ x64}
+
+        def library():
+            return {"Y": x @ w.T, "dX": dy @ w, "dW": dy.T @ x}
+
+        f32 = library()
+        setting = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            tf32 = library()
+        finally:
+            torch.set_float32_matmul_precision(setting)
+        errs = {key: (rel(got[key], want[key]), rel(f32[key], want[key]),
+                      rel(tf32[key], want[key])) for key in want}
+        print(f"linear check M {m}, K {k}, N {n}: routes {routes}, "
+              f"launches {launched}; error against float64 (kernel or "
+              f"route, cuBLAS float32, one TF32 pass): " + ", ".join(
+                  f"{key} {e:.2e} / {e32:.2e} / {e19:.2e}"
+                  for key, (e, e32, e19) in errs.items()), flush=True)
+        if "kernel" not in routes or launched != routes.count("kernel"):
+            misses.append((m, k, n, routes, launched))
+        misses += [(m, k, n, key, e) for key, (e, e32, e19) in errs.items()
+                   if e > 3 * max(e32, 1e-7) or e19 < 10 * e]
+        del x, w, dy, xl, wl, y, got, want, f32, tf32, x64, w64, dy64
+    if misses:
+        raise AssertionError(f"the Linear GEMM missed float64: {misses}")
+
+
+def time_linear(shapes=LINEAR_SHAPES + LINEAR_RULE_SHAPES,
+                iters: int = 5) -> dict:
+    """The 3xTF32 GEMM (``ops/linear.py``) on each Linear's three products
+    at each (M, K, N): the forward C [M, N] over K, dX [M, K] over N, dW
+    [N, K] over M, each timed in turns with its plain version
+    (``linear_plain``) and ``torch.matmul`` at "highest" (cuBLAS), beside
+    two bounds: :func:`bound`'s, which counts 3xTF32's three passes, and
+    the same with each FLOP counted once (the scale of the benchmark's
+    rooflines and of ``step_mfu_pct``) -> {(M, K, N, product): times}. The
+    kernel runs through ``product`` where the route takes it, and is
+    launched directly where the rule leaves the product to cuBLAS, so
+    that the rule can be read off these times; its correctness is
+    :func:`check_linear`'s."""
+    import torch
+
+    from avsum_torch.ops import linear as lin
+
+    out = {}
+    for m, k, n in shapes:
+        g = torch.Generator(device="cuda").manual_seed(m * 7 + k * 3 + n)
+        x = torch.randn(m, k, device="cuda", generator=g)
+        w = torch.randn(n, k, device="cuda", generator=g)
+        dy = torch.randn(m, n, device="cuda", generator=g)
+        for name, a, a_rows, b, b_rows, lhs, rhs, (mm, nn, kk) in (
+                ("fwd", x, True, w, True, x, w.t(), (m, n, k)),
+                ("dX", dy, True, w, False, dy, w, (m, k, n)),
+                ("dW", dy, False, x, False, dy.t(), x, (n, k, m))):
+            takes = lin.kernel_takes(mm, nn, kk, a_rows, b_rows)
+            kernel = (functools.partial(lin.product, a, b, a_rows, b_rows)
+                      if takes else functools.partial(
+                          lin._launch, a, a_rows, b, b_rows, None, mm, nn,
+                          kk))
+            fns = {"kernel": kernel,
+                   "plain": functools.partial(
+                       lin.linear_plain, lhs, rhs.t()),
+                   "library": functools.partial(torch.matmul, lhs, rhs)}
+            t = compare_ms(fns, iters=iters)
+            nbytes = 4 * (mm * kk + nn * kk + mm * nn)
+            bnd = bound(2 * mm * nn * kk, nbytes)
+            once = max(2 * mm * nn * kk / TF32_FLOPS, nbytes / HBM_BYTES)
+            out[m, k, n, name] = {"ms": t["kernel"][0],
+                                  "plain_ms": t["plain"][0],
+                                  "library_ms": t["library"][0], **bnd,
+                                  "bound_once_ms": once * 1e3}
+            print(f"linear {name} C [{mm}, {nn}] over {kk} (Linear M {m}, "
+                  f"K {k}, N {n}; {lin.plan_splits(mm, nn, kk, 132)} "
+                  f"parts): kernel {fmt_ms(t['kernel'])}, plain "
+                  f"{fmt_ms(t['plain'])}, library {fmt_ms(t['library'])} "
+                  f"(x{t['library'][0] / t['kernel'][0]:.2f}), bound "
+                  f"{bnd['bound_ms']:.4f} ms counting 3 passes "
+                  f"({bnd['bound_by']}; "
+                  f"{bnd['bound_ms'] / t['kernel'][0]:.1%}), "
+                  f"{once * 1e3:.4f} ms counting each FLOP once "
+                  f"({once * 1e3 / t['kernel'][0]:.1%}); the rule: "
+                  f"{'kernel' if takes else 'cuBLAS'}", flush=True)
+        del x, w, dy
+    return out
+
+
 def _grads(fn, qkv, mask, cot):
     leaf = qkv.clone().requires_grad_()
     out = fn(*leaf.unbind(2), mask)
@@ -832,10 +975,12 @@ def _reset_train_counts() -> None:
 
 def run_train(tmp: str) -> dict:
     """``train`` at the hour_scale widths through the CLI, 2 epochs, then
-    ``--resume`` for a third; -> summed launch counts of both runs."""
+    ``--resume`` for a third; -> summed launch counts of both runs (K2,
+    the backward and the Linear GEMM, ``gemm``), each counted from zero."""
     import numpy as np
 
     from avsum_torch.cli.main import main
+    from avsum_torch.ops.linear import linear
     from avsum_torch.train.checkpoint import CheckpointManager
 
     _write_feature_cache(f"{tmp}/cache", 4, seed=11)
@@ -848,16 +993,18 @@ def run_train(tmp: str) -> dict:
         args = [a for x in sets + [f"train.epochs={epochs}"]
                 for a in ("--set", x)]
         _reset_train_counts()
+        linear.launches = 0
         t0 = time.perf_counter()
         rc = main(["train", "--config", HOUR_CONFIG, "--device", "cuda",
                    *extra, *args])
         counts = _train_counts()
         print(f"train {list(extra)} to epoch {epochs}: rc {rc}, "
-              f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+              f"{time.perf_counter() - t0:.1f} s, launches {counts}, "
+              f"GEMM {linear.launches}")
         if rc != 0 or min(counts.values()) <= 0:
             raise AssertionError(f"train did not run both kernels: "
                                  f"rc {rc}, {counts}")
-        return counts
+        return {**counts, "gemm": linear.launches}
 
     first = cli(2)
     records = [json.loads(line) for line in open(log_path)]
@@ -1098,11 +1245,16 @@ def _reset_k12() -> None:
 
 
 def run_summarize(pipeline, model, path: str, budget: float):
+    """``summarize`` of ``path`` -> its result and the launches of K1, K2
+    and the Linear GEMM (``gemm``) in it, each counted from zero."""
+    from avsum_torch.ops.linear import linear
+
     _reset_k12()
+    linear.launches = 0
     t0 = time.perf_counter()
     result = pipeline.summarize(path, model)
     secs = time.perf_counter() - t0
-    counts = _k12_counts()
+    counts = {**_k12_counts(), "gemm": linear.launches}
     stages = {k: round(v, 4) for k, v in pipeline.stage_seconds.items()}
     print(f"summarize {path}: {len(result['boundaries'])} shots, "
           f"{secs:.2f} s, launches {counts}, stages {json.dumps(stages)}")
@@ -3138,6 +3290,8 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
     k1 = check_k1(k1_samples)
     k2 = check_k2(s_pad)
     bwd = check_bwd()
+    check_linear()
+    gemm = time_linear()
     compare_train_step()
     flash = hour_step()
     n_mesh, moe, deep = run_mesh(tmp, card, flash)
@@ -3168,6 +3322,12 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
          "launches": (n_train["flash_bwd"] + n_mesh["flash_bwd"]
                       + n_13["flash_bwd"] + n_14["flash_bwd"]),
          **bwd},
+        # the main path's runs alone: time_linear's and check_linear's
+        # launches are not among them
+        {"name": "gemm_tf32x3", "route": "cuda",
+         "source": "avsum_torch/csrc/gemm_tf32x3.cu", "replaces": None,
+         "launches": n_short["gemm"] + n_many["gemm"] + n_train["gemm"],
+         **gemm[7168, 2048, 2048, "fwd"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,8 @@
 backward (dQ, dK, dV in one launch) against their plain versions, and
 K2 -> the backward through the autograd Function against autograd of the
 plain attention; the flash kernels at the square head widths and at
-latent attention's q/k 192, v 128.
+latent attention's q/k 192, v 128; the Linear GEMM's forward, dX and dW
+at the main path's shapes against float64.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. The card machine has
 no JAX, so this file imports none and runs without the suite's conftest:
@@ -13,7 +14,8 @@ no JAX, so this file imports none and runs without the suite's conftest:
 
 float32 with TF32 off. Tolerances: K1 rtol = atol = 2e-3 (the JAX
 kernel test's), K2 rtol = atol = 1e-5, the backward rtol = atol = 1e-4 on
-the gradients.
+the gradients, the GEMM within 3 times cuBLAS float32's error against
+float64.
 """
 
 import ctypes
@@ -351,3 +353,117 @@ def test_flash_backward_kernels_match_plain_at_latent_widths(cuda, s):
     for name, a, b in zip("qkv", got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"d{name}: {m}")
+
+
+# (M, K, N, bias) of the Linear products on the main path: the decoder's at
+# 7168 shots (MLA's q, kv_a, kv_b and o projections, the dense SwiGLU, the
+# shared experts, the router), a held expert's rows, the hour cell's
+# Linears (with their biases) and a ragged expert
+LINEAR_CASES = [
+    *[(7168, k, n, False) for k, n in [
+        (2048, 3072), (2048, 576), (512, 4096), (2048, 2048), (2048, 22528),
+        (11264, 2048), (2048, 5632), (2816, 2048), (2048, 64)]],
+    (672, 2048, 2816, False), (672, 1408, 2048, False),
+    *[(7168, k, n, True) for k, n in [
+        (4096, 512), (296, 512), (512, 1536), (512, 2048), (2048, 512),
+        (1024, 3072)]],
+    (673, 2048, 2816, False),
+]
+
+
+def _rel_err(got, want):
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("m,k,n,bias", LINEAR_CASES)
+def test_linear_kernel_matches_float64(cuda, m, k, n, bias):
+    """Y = X W^T (+ b), dX = dY W and dW = dY^T X, each through the GEMM
+    where the route takes it (all three but the router's forward and dW,
+    whose C is a half tile wide), against float64. Tolerance: each within
+    3 times cuBLAS
+    float32's own error against float64 (at least 1e-7 of the largest
+    entry: the kernel's runs of 4 k-steps sum more evenly than cuBLAS, so
+    it is often the smaller), and at least 10 times below one TF32 pass's
+    (3xTF32 is float32-level; one pass is not)."""
+    from avsum_torch.ops.linear import linear, route
+
+    g = torch.Generator(device="cuda").manual_seed(m + 3 * k + 7 * n)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    w = torch.randn(n, k, device=cuda, generator=g) / math.sqrt(k)
+    b = torch.randn(n, device=cuda, generator=g) if bias else None
+    dy = torch.randn(m, n, device=cuda, generator=g)
+    leaves = [t.clone().requires_grad_() if t is not None else None
+              for t in (x, w, b)]
+    routes = [route(cuda, torch.float32, *shape) for shape in (
+        (m, n, k), (m, k, n, True, False), (n, k, m, False, False))]
+    assert routes[1] == "kernel"
+    before = linear.launches
+    linear(*leaves).backward(dy)
+    y = linear(x, w, b)
+    assert linear.launches == before + routes.count("kernel") + (
+        routes[0] == "kernel")
+    got = {"y": y, "dx": leaves[0].grad, "dw": leaves[1].grad}
+    x64, w64, dy64 = x.double(), w.double(), dy.double()
+    want = {"y": x64 @ w64.T + (b.double() if bias else 0),
+            "dx": dy64 @ w64, "dw": dy64.T @ x64}
+
+    def library():
+        return {"y": torch.nn.functional.linear(x, w, b), "dx": dy @ w,
+                "dw": dy.T @ x}
+
+    f32 = library()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = library()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for key in want:
+        err = _rel_err(got[key], want[key])
+        assert err <= 3 * max(_rel_err(f32[key], want[key]), 1e-7), (key, err)
+        assert _rel_err(tf32[key], want[key]) >= 10 * err, (key, err)
+    if bias:
+        torch.testing.assert_close(leaves[2].grad.double(), dy64.sum(0),
+                                   rtol=1e-5, atol=1e-3)
+
+
+def test_gemm_wgmmas_are_not_serialized(cuda):
+    """ptxas runs the GEMM's wgmmas back to back (no note C7514): a run's
+    groups are waited for before the loop's back edge."""
+    from avsum_torch import build
+    from avsum_torch.ops import linear
+
+    linear._lib()
+    lib = build.library_path("gemm_tf32x3")
+    log = lib.with_name(lib.name + ".log").read_text()
+    assert "C7514" not in log, log
+
+
+def test_linear_of_no_rows_launches_nothing(cuda):
+    """A held expert routed no shot: an empty output, zero dW and db, no
+    launch."""
+    from avsum_torch.ops.linear import linear
+
+    x = torch.empty(0, 2048, device=cuda, requires_grad=True)
+    w = torch.randn(2816, 2048, device=cuda, requires_grad=True)
+    b = torch.randn(2816, device=cuda, requires_grad=True)
+    before = linear.launches
+    y = linear(x, w, b)
+    y.sum().backward()
+    assert y.shape == (0, 2816) and linear.launches == before
+    assert not w.grad.any() and not b.grad.any()
+
+
+def test_linear_under_tf32_is_left_to_cublas(cuda):
+    """Under torch's "high" float32 matmul precision the products are
+    cuBLAS's one-pass TF32, counted as bypassed, with no launch."""
+    from avsum_torch.ops.linear import linear
+
+    x = torch.randn(7168, 512, device=cuda, requires_grad=True)
+    w = torch.randn(512, 512, device=cuda, requires_grad=True)
+    launches, bypassed = linear.launches, linear.bypassed
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        linear(x, w).sum().backward()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert linear.launches == launches and linear.bypassed == bypassed + 3
