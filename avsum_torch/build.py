@@ -32,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parent
 REPO_ROOT = PKG_DIR.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "avsum_torch"
-KERNELS = ("melspec", "flash_fwd", "flash_bwd", "gemm_tf32x3")
+KERNELS = ("melspec", "flash_fwd", "flash_bwd", "gemm_tf32x3", "kda")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

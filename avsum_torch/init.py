@@ -2,7 +2,9 @@
 
 The rule of ``avsum_tpu/vision/backbone.py::fast_init``: fan-in-scaled
 normals for weights, zeros for biases, BatchNorm scale 1 / bias 0 /
-mean 0 / var 1, LayerNorm scale 1 / bias 0, RMSNorm scale 1. Numbers
+mean 0 / var 1, LayerNorm scale 1 / bias 0, RMSNorm scale 1; a module
+with ``init_gates_`` (Kimi Delta Attention's decay gates) fills its own
+direct parameters from the same generator. Numbers
 come from a ``torch.Generator`` seeded with ``seed``, so they differ
 from JAX's for the same seed; parity tests load JAX's weights through
 :mod:`avsum_torch.convert` instead.
@@ -33,6 +35,9 @@ def fast_init_(module: nn.Module, seed: int = 0) -> nn.Module:
             # experts): the fan-in is the last axis
             for p in sub.parameters(recurse=False):
                 normal_(p, p.shape[-1])
+        elif hasattr(sub, "init_gates_"):
+            # Kimi Delta Attention's A_log and dt_bias: their source's rule
+            sub.init_gates_(gen)
         elif isinstance(sub, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             normal_(sub.weight, math.prod(sub.weight.shape[1:]))
             if sub.bias is not None:

@@ -55,6 +55,13 @@ projections are one ``gate_up`` matrix [2 width, dim] (gate rows first),
 and the held experts' are stacked: ``experts.gate_up`` [held, 2 width,
 dim], ``experts.down`` [held, dim, width].
 
+Kimi Linear's hybrid (``model.kda_layers``, arXiv:2510.26692) takes the
+same layer with Kimi Delta Attention (``models/kda.py``) in place of MLA
+in the layers it lists (1-indexed), and latent attention in the others;
+with ``mla_use_nope`` latent attention applies no rotation (its rope
+columns stay, k_pe still one key shared by every head) and the encoder
+builds no RoPE table.
+
 There is no exchange over chips yet: on a mesh whose ``model`` or
 ``seq`` axis is above 1 the encoder raises.
 """
@@ -68,6 +75,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsum_torch.models.attention import attend
+from avsum_torch.models.kda import KimiDeltaAttention
 from avsum_torch.ops.linear import Linear, linear
 from avsum_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
 from avsum_torch.train.config import ModelConfig
@@ -135,7 +143,9 @@ class LatentAttention(nn.Module):
         self.o_proj = Linear(self.heads * self.v_dim, dim, bias=False)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                ) -> torch.Tensor:
+        """``rope`` (cos, sin) of the shots; None: no rotation (NoPE)."""
         with annotate("avsum.mla"):
             b, s, _ = x.shape
             h = self.heads
@@ -145,9 +155,11 @@ class LatentAttention(nn.Module):
                 [self.rank, self.rope], dim=-1)
             k_nope, v = self.kv_b_proj(self.kv_a_layernorm(latent)).view(
                 b, s, h, -1).split([self.nope, self.v_dim], dim=-1)
-            cos, sin = rope
-            q = torch.cat([q_nope, apply_rope(q_pe, cos, sin)], dim=-1)
-            k_pe = apply_rope(k_pe[:, :, None, :], cos, sin)
+            k_pe = k_pe[:, :, None, :]
+            if rope is not None:
+                q_pe = apply_rope(q_pe, *rope)
+                k_pe = apply_rope(k_pe, *rope)
+            q = torch.cat([q_nope, q_pe], dim=-1)
             k = torch.cat([k_nope, k_pe.expand(b, s, h, self.rope)], dim=-1)
             ctx = attend(q, k, v, mask, dtype=torch.float32,
                          kernel=self.use_kernel)
@@ -258,7 +270,8 @@ class DecoderLayer(nn.Module):
         super().__init__()
         c = config
         self.input_layernorm = nn.RMSNorm(c.hidden_dim, eps=c.rms_norm_eps)
-        self.self_attn = LatentAttention(c, use_kernel)
+        self.self_attn = (KimiDeltaAttention(c) if index + 1 in c.kda_layers
+                          else LatentAttention(c, use_kernel))
         self.post_attention_layernorm = nn.RMSNorm(c.hidden_dim,
                                                    eps=c.rms_norm_eps)
         self.mlp = (SwiGLU(c.hidden_dim, c.intermediate_size)
@@ -285,6 +298,9 @@ class DecoderEncoder(nn.Module):
                 "seq axis is not written yet")
         self.theta = config.rope_theta
         self.rope_dim = config.qk_rope_head_dim
+        self.uses_rope = not config.mla_use_nope and any(
+            i + 1 not in config.kda_layers
+            for i in range(config.temporal_layers))
         self.layers = nn.ModuleList(
             DecoderLayer(config, i, use_kernel)
             for i in range(config.temporal_layers))
@@ -294,7 +310,8 @@ class DecoderEncoder(nn.Module):
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """``gen`` is taken for the encoders' signature: the decoder has no
         dropout."""
-        rope = rope_table(x.shape[1], self.rope_dim, self.theta, x.device)
+        rope = (rope_table(x.shape[1], self.rope_dim, self.theta, x.device)
+                if self.uses_rope else None)
         for layer in self.layers:
             x = layer(x, mask, rope)
         x = self.norm(x)

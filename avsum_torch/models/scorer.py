@@ -6,9 +6,12 @@
          attention blocks, or with ``model.pp_stages`` > 1 the staged
          attention encoder, dilated convolutions "tcn", experts "moe",
          Moonlight-16B-A3B's decoder "mla_moe": latent attention and
-         sparse experts, ``models/decoder.py``)
+         sparse experts, ``models/decoder.py``, or with
+         ``model.kda_layers`` Kimi Linear's hybrid of Kimi Delta
+         Attention and latent attention, ``models/kda.py``)
       -> fusion: "self" concatenates and adds self-attention over the
-         [B,S,2*hidden] concat (with ``model.chunk_size``, the only
+         [B,S,2*hidden] concat, of ``model.fusion_heads`` heads (0: as
+         many as ``model.num_heads``; with ``model.chunk_size``, the only
          attention that takes it, as in JAX); "cross" adds to v its
          attention over a, then to a its attention over the updated v,
          and concatenates
@@ -157,7 +160,8 @@ class AVScorer(nn.Module):
                 for _ in range(2))
         else:
             self.cross_attention = MultiHeadSelfAttention(
-                2 * hid, config.num_heads, dtype, use_kernel,
+                2 * hid, config.fusion_heads or config.num_heads, dtype,
+                use_kernel,
                 config.chunk_size,
                 ring_mesh=mesh if seq_split(mesh) else None).to(dtype)
         self.scorer_hidden = Linear(2 * hid, config.scorer_hidden)

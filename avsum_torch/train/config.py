@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import yaml
 
@@ -35,7 +35,7 @@ class AudioFeatConfig:
     n_fft: int = 400
     # torchaudio's MelSpectrogram/MFCC default (hop = n_fft // 2), the
     # settings the reference ran with (extractors.py:236-246). Also the
-    # n_fft == 2*hop shape the fused Pallas log-mel kernel requires.
+    # n_fft == 2*hop shape the fused log-mel kernel K1 requires.
     hop_length: int = 200
     win_length: int = 400
     n_mels: int = 128  # reference MelSpectrogram n_mels=128 (extractors.py:241)
@@ -48,15 +48,16 @@ class AudioFeatConfig:
     encoder: str = "vggish"  # vggish | large (upgraded encoder, config 4)
     # compute/ship dtype for the audio encoder (the spectral front-end
     # stays f32 — its golden contract is torchaudio-pinned). bfloat16
-    # halves the ~290 MB VGGish weight transfer a fresh process pays on
-    # a slow host link and runs the convs on the MXU's native dtype.
+    # halves the ~290 MB VGGish weight upload a fresh process pays and
+    # runs the convs on the tensor cores' bfloat16 path (cuDNN).
     dtype: str = "float32"  # float32 | bfloat16
     # path to ported VGGish params (audio/port_vggish.py::vggish_from_torch
     # saved via utils/serialization.py). "" = random init — stand-in for the
     # reference's torch.hub download (extractors.py:188)
     vggish_weights: str = ""
-    # fused STFT->mel->log Pallas kernel: None = auto (on for TPU backends,
-    # off elsewhere); requires n_fft == 2*hop_length
+    # the fused STFT->mel->log CUDA kernel K1 (csrc/melspec.cu): None or
+    # True = on for CUDA devices (the plain spectral ops on the CPU), False
+    # = off; requires n_fft == 2*hop_length
     use_pallas: Optional[bool] = None
     # missing-audio policy: audio comes from a <stem>.wav sidecar or the
     # container itself (PCM mp4 tracks demux natively, avsum_torch/io/mp4.py).
@@ -104,10 +105,9 @@ class VisualFeatConfig:
     # vit_b_16 layout — the one the offline weight port targets)
     vit_variant: str = "s16"
     dtype: str = "bfloat16"
-    # embed-program jit batch (frames per device dispatch). 256 is the
-    # measured MXU-occupancy sweet spot for the dual backbone on v5e with
-    # bf16 preprocessing (0.375 ms/frame, 26.5% MFU, vs 0.467 at 128 —
-    # scripts/sweep_embed_mfu.py); larger batches regress on HBM layout.
+    # frames a device dispatch of the backbones (the visual frontend's
+    # batch bucket; the tail is zero-padded to it): 256 as in the JAX
+    # package, so that both embed the same buckets.
     batch_size: int = 256
 
 
@@ -163,7 +163,21 @@ class ModelConfig:
     # rank's block under expert parallelism): the router scores all
     # n_routed_experts and the layer adds its held experts' share alone
     moe_experts_held: int = 64
+    # Kimi Linear's hybrid (models/kda.py), keys named as in the source's
+    # config.json: the 1-indexed layers in kda_layers
+    # (linear_attn_config.kda_layers) take Kimi Delta Attention, of
+    # kda_num_heads heads of kda_head_dim (linear_attn_config.num_heads,
+    # .head_dim) behind a causal convolution of short_conv_kernel_size;
+    # the others latent attention, with no rotary positions where
+    # mla_use_nope. () builds latent attention in every layer.
+    kda_layers: Tuple[int, ...] = ()
+    kda_num_heads: int = 32
+    kda_head_dim: int = 128
+    short_conv_kernel_size: int = 4
+    mla_use_nope: bool = False
     fusion: str = "self"  # self (MHSA over concat) | cross (co-attention)
+    # heads of the self fusion's attention over [S, 2 hidden]; 0 = num_heads
+    fusion_heads: int = 0
     chunk_size: int = 0  # 0 = full attention; >0 = blockwise/chunked
     # the flash-attention CUDA kernels (K2 forward, the fused backward, so
     # training never materializes [S, S] either): None or True = on for
@@ -193,12 +207,17 @@ class TrainConfig:
     keep_checkpoints: int = 3
     log_path: Optional[str] = None  # JSONL scalar sink
     debug_nans: bool = False
-    # JAX matmul precision for training: "default" keeps the backend's
-    # fastest mode (on TPU, f32 matmuls run as bf16 MXU passes — the
-    # standard production choice), "float32"/"highest" forces full-f32
-    # accumulation paths (use for numerics-sensitive A/B comparisons;
-    # see PARITY_PROCEDURE.md §6 for a case where the default changed a
-    # trained model's behavior). Applied process-wide by the Trainer.
+    # float32 matmul precision for training, mapped onto torch's TF32
+    # switches by train/steps.py::apply_matmul_precision (process-wide,
+    # by the Trainer): "default" leaves torch's own settings (float32
+    # products in full float32, through cuBLAS and the port's 3xTF32
+    # CUDA kernels; cuDNN's convolutions in TF32); "float32"/"highest"
+    # turns TF32 off for matmuls and cuDNN alike; "high"/"tensorfloat32"
+    # turns it on (one TF32 pass, about three decimal digits; the port's
+    # Linear kernel then leaves the products to cuBLAS); "bfloat16" lets
+    # float32 matmuls run in bfloat16. Use "highest" for numerics-
+    # sensitive A/B comparisons: PARITY_PROCEDURE.md §6 records a trained
+    # model whose behavior changed with the precision alone.
     matmul_precision: str = "default"
     # Polyak/EMA weight averaging: > 0 maintains an exponential moving
     # average of the params on device (decay per step, e.g. 0.999) and
@@ -312,12 +331,16 @@ def load_config(
 
 
 def _normalize(cfg: Config) -> Config:
-    """Make dependent dims follow the backbone choice.
+    """Hold ``model.kda_layers`` as a tuple (YAML gives a list), and make
+    dependent dims follow the backbone choice.
 
     A resnet50-only backbone natively emits 2048-d features; the 4096
     contract (extractors.py:108) is the *dual*-backbone concat. When the
     dims were left at their dual defaults, follow the backbone instead of
     padding/duplicating features to fake the contract."""
+    if isinstance(cfg.model.kda_layers, list):
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, kda_layers=tuple(cfg.model.kda_layers)))
     if cfg.visual.backbone == "resnet50":
         if cfg.visual.feature_dim == 4096:
             cfg = _set_path(cfg, "visual.feature_dim", "2048")

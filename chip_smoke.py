@@ -43,14 +43,23 @@ raising on failure:
    against float64 (``check_linear``), then timed there and at smaller
    shapes (``time_linear``) beside its plain version, cuBLAS at
    "highest" and the bound counting 3xTF32's passes and each FLOP once,
-   with the route's choice at each;
+   with the route's choice at each; Kimi Delta Attention's kernel
+   (``csrc/kda.cu``) at the hybrid decoder's [1, 7168, 32, 128]: its
+   forward and backward passes over chunks, on chunks made from keys and
+   gates as the layer draws them, against their plain version
+   (``pass_plain``), then timed in turns with it beside the bound, and
+   ``chunk_kda`` against the benchmark reference's token recurrence in
+   float64, forward and every input gradient (``check_kda``);
 7. one hour-scale train step on the card against the same step on the
    CPU (same parameters and batch, dropout 0): loss, every gradient and
    the parameters after 3 steps;
 8. one train step at S = 7168 with remat (``scripts/bench_train_hour.py``'s
    shape): its time, peak device memory, and the device time of two
    steps by kernel (K2, the backward, cuBLAS, the rest and its largest
-   kernels; torch.profiler);
+   kernels; torch.profiler); then one train step of
+   ``configs/torch/kimi_linear_hour.yaml`` at S = 7168 (the hybrid
+   decoder: the KDA kernel, latent attention, the experts), its time,
+   peak memory and the KDA kernel's launches (``kda_step``);
 9. the dataset path through the CLI at the ``configs/summe.yaml`` widths
    (those of phase 3), on a directory of the phase 3 and 4 videos and
    three more, with SumMe-shaped ground truth of five users each:
@@ -182,7 +191,8 @@ in its process, and (c)'s summarize on the card), 15 (the parity
 worlds' preprocess, in its process, and each command of (b)) and 16 (the
 ppep and curve worlds' preprocess and the A/B's timed summarizes, each in
 its process), and read just after it;
-the comparisons of phases 6-8 and 11 (c)-(e), 10 (d)'s eager scorer and
+the KDA kernel's are reset just before phase 8's hybrid step and read
+after it; the comparisons of phases 6-8 and 11 (c)-(e), 10 (d)'s eager scorer and
 the one-process runs of phases 12 and 13 are not counted.
 
 The last three lines are the kernels' JSON, the card's nvidia-smi line
@@ -219,6 +229,12 @@ GRAD_TOL = 1e-4  # card vs CPU gradients, relative to each tensor's max |g|
 PARAM_TOL = 1e-5  # card vs CPU parameters after 3 train steps
 HOUR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "hour_scale.yaml")
+KIMI_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "torch", "kimi_linear_hour.yaml")
+# the KDA kernel against its plain version, and chunk_kda against the
+# float64 recurrence: float32 sums of 64 or 128 products in other orders,
+# relative to the largest entry (one TF32 pass errs ~1e-3)
+KDA_TOL = 1e-5
 SUMME_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "configs", "summe.yaml")
 FEATURE_TOL = dict(rtol=1e-3, atol=1e-3)  # preprocess vs summarize features
@@ -663,17 +679,31 @@ def time_bwd_latent(s: int = 7168, h: int = 16, iters: int = 5) -> dict:
     return t
 
 
+# (M, K, N) of the hybrid decoder's Linear products that reach the
+# kernel (``kimi_linear_hour``, 7168 shots): the modality Linears (the
+# visual one the shape of KDA's o_proj), KDA's q/k/v projections, its
+# gates' f_a, f_b and g_a, g_b, the NoPE MLA's q, kv_a and kv_b, the 9216
+# SwiGLU, the shared expert, a held expert's gate_up at ~224 rows, the
+# fusion over 4608 and the head
+HYBRID_LINEAR_SHAPES = (
+    (7168, 4096, 2304), (7168, 296, 2304), (7168, 2304, 4096),
+    (7168, 2304, 128), (7168, 128, 4096), (7168, 2304, 6144),
+    (7168, 2304, 576), (7168, 512, 8192), (7168, 2304, 18432),
+    (7168, 9216, 2304), (7168, 2304, 2048), (7168, 1024, 2304),
+    (224, 2304, 2048), (7168, 4608, 13824), (7168, 4608, 4608),
+    (7168, 4608, 64))
 # (M, K, N) of the Linear products of the main path: the decoder's at
 # 7168 shots (MLA's projections, the dense SwiGLU, the shared experts, the
-# router), a held expert's ~672 rows, the hour cell's Linears; and, for the
-# route's rule, small ones below them
+# router), a held expert's ~672 rows, the hour cell's Linears, the hybrid
+# decoder's; and, for the route's rule, small ones below them
 LINEAR_SHAPES = (
     (7168, 2048, 3072), (7168, 2048, 576), (7168, 512, 4096),
     (7168, 2048, 2048), (7168, 2048, 22528), (7168, 11264, 2048),
     (7168, 2048, 5632), (7168, 2816, 2048), (7168, 2048, 64),
     (672, 2048, 2816), (672, 1408, 2048),
     (7168, 4096, 512), (7168, 296, 512), (7168, 512, 1536),
-    (7168, 512, 2048), (7168, 2048, 512), (7168, 1024, 3072))
+    (7168, 512, 2048), (7168, 2048, 512), (7168, 1024, 3072),
+    *HYBRID_LINEAR_SHAPES)
 LINEAR_RULE_SHAPES = (
     (64, 512, 512), (128, 512, 512), (256, 512, 512), (544, 512, 512),
     (1024, 512, 512), (2048, 512, 512), (3072, 512, 512), (4096, 512, 512),
@@ -798,6 +828,174 @@ def time_linear(shapes=LINEAR_SHAPES + LINEAR_RULE_SHAPES,
                   f"{'kernel' if takes else 'cuBLAS'}", flush=True)
         del x, w, dy
     return out
+
+
+def _kda_inputs(s: int, h: int, d: int = 128, seed: int = 7) -> tuple:
+    """q, k, v, g [1, S, H, d] and beta [1, S, H] on the card, as the KDA
+    layer makes them at its init: q and k of unit length (q then times
+    d^-1/2), the log decay -A softplus(x - 4) with A in [1, 16] a head
+    and x of unit size (-G passes float32's range within a chunk), beta a
+    sigmoid."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q = F.normalize(randn(1, s, h, d), dim=-1) * d ** -0.5
+    k = F.normalize(randn(1, s, h, d), dim=-1)
+    v = randn(1, s, h, d)
+    a = 1 + 15 * torch.rand(h, generator=gen, device="cuda")
+    g = -a[:, None] * F.softplus(randn(1, s, h, d) - 4.0)
+    return q, k, v, g, torch.sigmoid(randn(1, s, h))
+
+
+def kda_pass_bound(a2, base, extra) -> dict:
+    """:func:`bound` of one pass of ``csrc/kda.cu`` over chunks a2 [B, H,
+    N, C, K] of values base [B, H, N, C, V]: a chunk's two products (X =
+    base - a1t^T R, R = gamma R + a2^T X), 4 C K V flops a chunk and head;
+    a1t, a2, base, gamma (and the backward's dS, ``extra``) read once, the
+    states [.., K, V] and X written once."""
+    b, h, n, c, dk = a2.shape
+    states = b * h * n * dk * base.shape[-1]
+    reads = 2 * a2.numel() + base.numel() + b * h * n * dk + (
+        0 if extra is None else extra.numel())
+    return bound(4 * states * c, 4 * (reads + states + base.numel()))
+
+
+def check_kda(s: int = 7168, h: int = 32, iters: int = 5) -> dict:
+    """Kimi Delta Attention's kernel (``csrc/kda.cu`` through
+    ``ops/kda.py``) at the hybrid decoder's [1, S, H, 128], on
+    :func:`_kda_inputs`: the forward pass over chunks (``kda_fwd``) on the
+    chunks ``chunk_parts`` makes of them, and the backward's reverse pass
+    (``kda_bwd``) on cotangents of unit size, against their plain version
+    (``pass_plain``, a torch loop over the chunks), then each timed in
+    turns with it beside :func:`kda_pass_bound`; and ``chunk_kda``,
+    forward and the gradients of q, k, v, g and beta, against the
+    benchmark reference's token recurrence (``benchmark/reference/
+    kimi_linear.py``) run in float64. Raises past KDA_TOL of the largest
+    entry -> the kernel's entry of the kernels' JSON."""
+    import torch
+
+    from avsum_torch.ops import kda
+    from benchmark.reference.kimi_linear import kda_recurrence
+
+    def gap(got, want):
+        got, want = got.detach().double(), want.detach().double()
+        return float((got - want).abs().max() / want.abs().max())
+
+    inputs = _kda_inputs(s, h)
+    n = -(-s // kda.CHUNK)
+    parts = [kda._chunks(t, n) for t in inputs[:4]]
+    parts.append(kda._chunks(inputs[4][..., None], n)[..., 0])
+    with torch.no_grad():
+        _, _, w, u0, kt, gamma = kda.chunk_parts(*parts)
+    del parts
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    d_u = torch.randn(u0.shape, generator=gen, device="cuda")
+    d_states = torch.randn(*kt.shape[:3], kt.shape[-1], u0.shape[-1],
+                           generator=gen, device="cuda")
+    passes = {
+        "forward": (lambda: kda.kda_fwd(w, u0, kt, gamma),
+                    lambda: kda.pass_plain(w.transpose(-1, -2), kt, u0, gamma,
+                                           None, 1.0, reverse=False),
+                    kda_pass_bound(kt, u0, None)),
+        "backward": (lambda: kda.kda_bwd(w, kt, gamma, d_states, d_u),
+                     lambda: kda.pass_plain(kt.transpose(-1, -2), w, d_u,
+                                            gamma, d_states, -1.0,
+                                            reverse=True),
+                     kda_pass_bound(w, d_u, d_states))}
+    misses, out = [], {}
+    for name, (kernel, plain, bnd) in passes.items():
+        got, want = kernel(), plain()
+        err = max(gap(a, b_) for a, b_ in zip(got, want))
+        del got, want
+        t = compare_ms({"kernel": kernel, "plain": plain}, iters=iters)
+        print(f"KDA {name} pass at [1, {s}, {h}, 128] ({n} chunks): kernel "
+              f"{fmt_ms(t['kernel'])}, plain {fmt_ms(t['plain'])}; max "
+              f"error over the largest entry {err:.3e}; bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
+              f"{bnd['bound_ms'] / t['kernel'][0]:.1%})", flush=True)
+        key = "" if name == "forward" else "bwd_"
+        out.update({f"{key}ms": t["kernel"][0],
+                    f"{key}plain_ms": t["plain"][0],
+                    f"{key}bound_ms": bnd["bound_ms"],
+                    f"{key}max_rel_err": err})
+        if err > KDA_TOL:
+            misses.append((name, err))
+    del w, u0, kt, gamma, d_u, d_states
+    mine = [t.clone().requires_grad_(True) for t in inputs]
+    theirs = [t.double().requires_grad_(True) for t in inputs]
+    got, want = kda.chunk_kda(*mine), kda_recurrence(*theirs)
+    cot = torch.randn(got.shape, generator=gen, device="cuda")
+    (got * cot).sum().backward()
+    (want * cot.double()).sum().backward()
+    gaps = {"o": gap(got, want), **{f"d{name}": gap(a.grad, b_.grad)
+                                    for name, a, b_ in zip(
+                                        ("q", "k", "v", "g", "beta"), mine,
+                                        theirs)}}
+    print(f"chunk_kda at [1, {s}, {h}, 128] against the float64 recurrence, "
+          f"max error over the largest entry: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in gaps.items()), flush=True)
+    misses += [(k, v) for k, v in gaps.items() if v > KDA_TOL]
+    if misses:
+        raise AssertionError(f"the KDA kernel missed its plain version: "
+                             f"{misses}")
+    return {"chunk_kda_max_rel_err": max(gaps.values()), **out}
+
+
+def kda_step(steps: int = 2) -> dict:
+    """``steps`` train steps of ``configs/torch/kimi_linear_hour.yaml`` at
+    S = 7168 (Kimi Linear's hybrid decoder as each modality's encoder,
+    random weights, dropout on) through ``make_train_step``, after a
+    first one that builds and warms: their times, the peak memory and the
+    KDA kernel's launches, counted from 0 just before them; each step
+    must launch it once forward and once backward in each of the 8 KDA
+    layers (4 a decoder, 2 modalities) -> {"launches", "warm", "peak"}."""
+    import numpy as np
+    import torch
+
+    from avsum_torch.models.scorer import make_model
+    from avsum_torch.ops import kda
+    from avsum_torch.train import steps as train_steps
+    from avsum_torch.train.config import load_config
+
+    cfg = load_config(KIMI_CONFIG)
+    s = 7168
+    rng = np.random.default_rng(0)
+    batch = train_steps.batch_to_device({
+        "visual": rng.standard_normal((1, s, 4096), np.float32),
+        "audio": rng.standard_normal((1, s, 296), np.float32),
+        "targets": rng.random((1, s), np.float32),
+        "mask": np.ones((1, s), np.float32)}, "cuda")
+    model = make_model(cfg.model, seed=0).cuda()
+    state = train_steps.create_train_state(model, cfg.train, total_steps=100)
+    step = train_steps.make_train_step(model, seed=0)
+    float(step(state, batch)[1]["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kda.kda_fwd.launches = kda.kda_bwd.launches = 0
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = float(step(state, batch)[1]["loss"])
+        times.append(round((time.perf_counter() - t0) * 1e3, 1))
+    launches = {"forward": kda.kda_fwd.launches,
+                "backward": kda.kda_bwd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    layers = 2 * len(cfg.model.kda_layers)
+    print(f"hybrid step [1, {s}] (kimi_linear_hour.yaml): warm {times} ms, "
+          f"loss {loss:.5f}, peak device memory {peak:.2f} GiB; KDA kernel "
+          f"launches in {steps} steps {launches} ({layers} KDA layers)",
+          flush=True)
+    if not np.isfinite(loss) or launches != {"forward": steps * layers,
+                                             "backward": steps * layers}:
+        raise AssertionError(f"hybrid step: loss {loss}, KDA launches "
+                             f"{launches}, want {steps * layers} each")
+    return {"launches": launches["forward"] + launches["backward"],
+            "warm": times, "peak": peak}
 
 
 def _grads(fn, qkv, mask, cot):
@@ -3292,8 +3490,10 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
     bwd = check_bwd()
     check_linear()
     gemm = time_linear()
+    kda = check_kda()
     compare_train_step()
     flash = hour_step()
+    hybrid = kda_step()
     n_mesh, moe, deep = run_mesh(tmp, card, flash)
     n_13 = run_phase13(tmp, card, flash, moe, pipeline, model, f"{many}.y4m")
     n_14 = run_phase14(tmp, card, media, f"{short}.y4m", budget)
@@ -3328,6 +3528,10 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
          "source": "avsum_torch/csrc/gemm_tf32x3.cu", "replaces": None,
          "launches": n_short["gemm"] + n_many["gemm"] + n_train["gemm"],
          **gemm[7168, 2048, 2048, "fwd"]},
+        # the hybrid step's launches alone, forward and backward passes;
+        # the times are the forward's, bwd_ the backward's
+        {"name": "kda", "route": "cuda", "source": "avsum_torch/csrc/kda.cu",
+         "replaces": None, "launches": hybrid["launches"], **kda},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import reference_decoder as ref
+import reference_kimi_linear as ref_kimi
 from avsum_torch.data.batching import batch_iterator
 from avsum_torch.data.synthetic import make_synthetic_videos
 from avsum_torch.init import fast_init_
@@ -44,6 +45,7 @@ from benchmark.drivers.train_decoder import program_leaf_map, program_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML = os.path.join(ROOT, "configs", "torch", "moonlight_hour.yaml")
+KIMI_YAML = os.path.join(ROOT, "configs", "torch", "kimi_linear_hour.yaml")
 VAL = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)
 TINY = ["model.hidden_dim=32", "model.num_heads=2", "model.kv_lora_rank=8",
@@ -55,8 +57,19 @@ TINY = ["model.hidden_dim=32", "model.num_heads=2", "model.kv_lora_rank=8",
         "model.audio_dim=6", "model.scorer_hidden=8"]
 
 
-def tiny_config(*extra) -> ModelConfig:
-    return load_config(YAML, TINY + list(extra)).model
+# the configurations whose expert layer the share test cuts: (YAML, its
+# overrides beside TINY, its plain reference)
+SHARE_CONFIGS = {
+    "moonlight_hour": (YAML, [], ref),
+    "kimi_linear_hour": (KIMI_YAML, ["model.kda_layers=[1,2]",
+                                     "model.kda_num_heads=2",
+                                     "model.kda_head_dim=8",
+                                     "model.fusion_heads=4"], ref_kimi),
+}
+
+
+def tiny_config(*extra, yaml: str = YAML) -> ModelConfig:
+    return load_config(yaml, TINY + list(extra)).model
 
 
 def model_dict(cfg: ModelConfig) -> dict:
@@ -182,14 +195,18 @@ def test_router_matches_reference_with_a_correction_bias():
         **VAL)
 
 
-def test_the_four_expert_shares_sum_to_the_uncut_layer():
+@pytest.mark.parametrize("config", ["moonlight_hour", "kimi_linear_hour"])
+def test_the_four_expert_shares_sum_to_the_uncut_layer(config):
     """Each of four chips holds 2 of 8 experts; rank r's share is the
     port's layer holding experts 0-1 after the experts are renumbered so
     that r's block comes first. The shares' routed parts plus the shared
-    experts once give the uncut reference layer."""
-    cfg = tiny_config()
+    experts once give the uncut reference layer: Moonlight's layer (two
+    shared experts) and Kimi Linear's (one), each from its own YAML and
+    reference."""
+    yaml, extra, reference = SHARE_CONFIGS[config]
+    cfg = tiny_config(*extra, yaml=yaml)
     model = model_dict(cfg)
-    leaves = ref.init_leaves(model, 7, "cpu")
+    leaves = reference.init_leaves(model, 7, "cpu")
     p = layer_leaves(leaves, "visual_enc.1.")
     bias = torch.linspace(0.2, -0.2, 8)
     x = torch.randn(1, 12, 32, generator=torch.Generator().manual_seed(8))
