@@ -32,16 +32,24 @@ pair by pair; between sub-blocks through the last shot r before the
 later one, exp(G_i - G_r) exp(G_r - G_j), both factors at most 1 (a
 factor that underflows stands for a product below float32's range).
 
-The pass over the chunks (U_c and S_c, and in the backward the reverse
-pass over dS) is sequential; :class:`StatePass` runs it, by the CUDA
-kernel ``csrc/kda.cu`` for CUDA tensors and by :func:`pass_plain`, the
-same arithmetic as a loop of torch products, on the CPU. The parts that
-are parallel over the chunks stay batched torch products, differentiated
-by autograd. Everything is float32.
+The parts that are parallel over the chunks (G, the pairwise decays,
+A_qk, A_kk, the forward substitution, Q exp(G), K~, gamma) and their
+gradient are :class:`ChunkParts`: for CUDA tensors two kernels of
+``csrc/kda.cu``, one CTA a chunk of a head, which read the layer's
+[B, S, H, .] tensors by strides and recompute everything in the
+backward from those inputs alone; on the CPU :func:`chunk_parts`
+forward and :func:`parts_bwd_plain`, the backward kernel's arithmetic
+as torch products. The pass over the chunks (U_c and S_c, and in the
+backward the reverse pass over dS) is sequential; :class:`StatePass`
+runs it, by the CUDA kernel for CUDA tensors and by :func:`pass_plain`,
+the same arithmetic as a loop of torch products, on the CPU. Everything
+is float32.
 
 Counters, plain integers read by no metric: ``kda_fwd.launches`` and
-``kda_bwd.launches``, the kernel's forward and backward launches (one
-each a call of :func:`chunk_kda` and its backward).
+``kda_bwd.launches``, the pass kernel's forward and backward launches,
+and ``kda_intra_fwd.launches`` and ``kda_intra_bwd.launches``, the
+chunk-parallel kernels' (one each a call of :func:`chunk_kda` and its
+backward).
 """
 
 from __future__ import annotations
@@ -52,7 +60,6 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from avsum_torch.build import load_kernel
 
@@ -70,6 +77,21 @@ def _chunks(x: torch.Tensor, n: int) -> torch.Tensor:
         x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
     x = x.reshape(b, n, CHUNK, h, *x.shape[3:])
     return x.transpose(1, 3).transpose(2, 3)
+
+
+def chunk_inputs(q, k, v, g, beta) -> list:
+    """The layer's q, k, v, g [B, S, H, .] and beta [B, S, H] as chunks
+    [B, H, N, CHUNK, .] and [B, H, N, CHUNK], zero-padded past S."""
+    n = -(-k.shape[1] // CHUNK)
+    parts = [_chunks(t, n) for t in (q, k, v, g)]
+    return parts + [_chunks(beta[..., None], n)[..., 0]]
+
+
+def _unchunks(x: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, H, n, CHUNK, ...] -> [B, S, H, ...], the rows past S dropped."""
+    b, h, n = x.shape[:3]
+    x = x.transpose(2, 3).transpose(1, 3)
+    return x.reshape(b, n * CHUNK, h, *x.shape[4:])[:, :s]
 
 
 def decay_products(q: torch.Tensor, k: torch.Tensor, g: torch.Tensor
@@ -139,6 +161,90 @@ def chunk_parts(q, k, v, g, beta):
             torch.exp(gc[..., -1, :]))
 
 
+def parts_bwd_plain(q, k, v, g, beta, d_qg, d_aqk, d_w, d_u0, d_kt,
+                    d_gamma):
+    """The gradient of :func:`chunk_parts`, of chunks [B, H, N, C, ...],
+    from the gradients of its six outputs -> (dq, dk, dv, dg, dbeta): the
+    backward kernel's arithmetic as torch products, recomputed from the
+    inputs.
+
+    The substitution: with Ab = A_kk diag(beta), y = R - Ab y (R = [K
+    exp(G) | V]) and X = [W | U'] = beta y; its transpose gives dB = dX -
+    (diag(beta) A_kk)^T dB, so dR = beta dB, dbeta_i = dB_i . y_i and
+    dA_kk = -beta_i beta_j dB_i . y_j below the diagonal. The decays: the
+    gradients of A_qk and A_kk reach q_i, k_i and k_j through the ratios
+    exp(G_i - G_j), taken as the forward takes them (pairwise inside a
+    sub-block, through the shot before the later sub-block between
+    them); each pair j < i reaches G_i with the sign +, G_j with -, and
+    one reverse scan turns dG into dg (K~'s exponent, g summed after each
+    shot, one forward scan). A_qk's diagonal (ratio 1) reaches q and k
+    alone: in dG its two terms would cancel, leaving only rounding."""
+    c, dk = k.shape[-2:]
+    nb = c // SUB
+    lead = k.shape[:-2]
+    gc = g.cumsum(-2)
+    eg = torch.exp(gc)
+    rest = F.pad(g[..., 1:, :].flip(-2).cumsum(-2).flip(-2), (0, 0, 0, 1))
+    er = torch.exp(rest)
+    a_kk = decay_products(q, k, g)[1]
+    # the substitution and its transpose
+    r = torch.cat([k * eg, v], -1)
+    x = torch.cat(wy_representation(a_kk, k * eg, v, beta), -1)
+    y = r - a_kk @ x
+    d_b = torch.linalg.solve_triangular(
+        (a_kk * beta[..., None]).transpose(-1, -2), torch.cat([d_w, d_u0], -1),
+        upper=True, unitriangular=True)
+    d_r = d_b * beta[..., None]
+    d_beta = (d_b * y).sum(-1)
+    d_akk = -(d_r @ x.transpose(-1, -2)).tril(-1)
+    d_aqk = d_aqk.tril()
+    # the decays inside each sub-block, pair by pair, as decay_products
+    qb, kb, gb = (t.reshape(*lead, nb, SUB, dk) for t in (q, k, g))
+    idx = torch.arange(SUB, device=k.device)
+    span = (gb[..., None, :, :] * (idx[None, :] > idx[:, None])[..., None]
+            ).cumsum(-2)
+    # pairs j < i alone: a shot's own term (ratio 1) moves no decay
+    ratio = torch.exp(span.transpose(-2, -3)) * (
+        idx[:, None] > idx[None, :])[..., None]
+
+    def diag_blocks(a):
+        a = a.reshape(*lead, nb, SUB, nb, SUB).diagonal(dim1=-4, dim2=-2)
+        return a.permute(*range(len(lead)), -1, -3, -2)[..., None]
+
+    daq, dakk = diag_blocks(d_aqk), diag_blocks(d_akk)
+    pq = (daq * ratio * kb[..., None, :, :]).sum(-2)
+    kp = (dakk * ratio * kb[..., None, :, :]).sum(-2)
+    km = ((daq * qb[..., :, None, :] + dakk * kb[..., :, None, :])
+          * ratio).sum(-3)
+    pq, kp, km = (t.reshape(*lead, c, dk) for t in (pq, kp, km))
+    # a later sub-block's rows i against the shots j <= r before it:
+    # exp(g over (r, i]) exp(g over (j, r])
+    local = gb.cumsum(-2)
+    for i in range(1, nb):
+        r = i * SUB
+        rows = slice(r, r + SUB)
+        tail = g[..., 1:r, :].flip(-2).cumsum(-2).flip(-2)
+        right = torch.exp(F.pad(tail, (0, 0, 0, 1)))
+        left = torch.exp(local[..., i, :, :])
+        kr = k[..., :r, :] * right
+        daq_i, dakk_i = d_aqk[..., rows, :r], d_akk[..., rows, :r]
+        pq[..., rows, :] += left * (daq_i @ kr)
+        kp[..., rows, :] += left * (dakk_i @ kr)
+        km[..., :r, :] += right * (
+            daq_i.transpose(-1, -2) @ (qb[..., i, :, :] * left)
+            + dakk_i.transpose(-1, -2) @ (kb[..., i, :, :] * left))
+    d_kg = d_r[..., :dk]
+    own = d_aqk.diagonal(dim1=-2, dim2=-1)[..., None]
+    d_q = d_qg * eg + pq + own * k
+    d_k = d_kg * eg + d_kt * er + kp + km + own * q
+    d_gc = (d_qg * q + d_kg * k) * eg + q * pq + k * (kp - km)
+    d_gc[..., -1, :] += d_gamma * eg[..., -1, :]
+    d_rest = d_kt * k * er
+    d_g = (d_gc.flip(-2).cumsum(-2).flip(-2)
+           + F.pad(d_rest[..., :-1, :].cumsum(-2), (0, 0, 1, 0)))
+    return d_q, d_k, d_r[..., dk:], d_g, d_beta
+
+
 def pass_plain(a1t: torch.Tensor, a2: torch.Tensor, base: torch.Tensor,
                gamma: torch.Tensor, extra: Optional[torch.Tensor],
                sign: float, reverse: bool
@@ -170,13 +276,17 @@ def _lib() -> ctypes.CDLL:
     lib.avsum_kda_pass.restype = int_
     lib.avsum_kda_pass.argtypes = [int_, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                    int_, int_, int_, int_, ptr]
+    lib.avsum_kda_intra_fwd.restype = int_
+    lib.avsum_kda_intra_fwd.argtypes = [ptr] * 11 + [int_] * 4 + [ptr]
+    lib.avsum_kda_intra_bwd.restype = int_
+    lib.avsum_kda_intra_bwd.argtypes = [ptr] * 16 + [int_] * 4 + [ptr]
     lib.avsum_kda_layout.restype = None
     lib.avsum_kda_layout.argtypes = [ctypes.POINTER(ctypes.c_long)]
-    out = (ctypes.c_long * 3)()
+    out = (ctypes.c_long * 4)()
     lib.avsum_kda_layout(out)
-    if list(out) != [CHUNK, KEY_DIM, V_SPLIT]:
+    if list(out) != [CHUNK, KEY_DIM, V_SPLIT, SUB]:
         raise RuntimeError(f"KDA kernel layout {list(out)} is not the "
-                           f"wrapper's {[CHUNK, KEY_DIM, V_SPLIT]}: "
+                           f"wrapper's {[CHUNK, KEY_DIM, V_SPLIT, SUB]}: "
                            "csrc/kda.cu and ops/kda.py disagree")
     return lib
 
@@ -266,23 +376,110 @@ class StatePass(torch.autograd.Function):
         return dw, du, dkt, dgamma
 
 
+def _intra_args(q, k, v, g, beta):
+    """The layer's tensors as the chunk-parallel kernels take them, float32
+    and contiguous, after the shape check -> (tensors, (B, S, H, V))."""
+    b, s, h, dk = k.shape
+    dv = v.shape[-1]
+    if dk != KEY_DIM or dv % V_SPLIT or not 0 < dv <= KEY_DIM:
+        raise ValueError(f"the KDA chunk kernels take chunks of {CHUNK}, keys "
+                         f"of {KEY_DIM} and values a multiple of {V_SPLIT} "
+                         f"up to {KEY_DIM}; got keys {dk}, values {dv}")
+    return [_aligned(t) for t in (q, k, v, g, beta)], (b, s, h, dv)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """float32, contiguous, at a 16-byte boundary (the kernels' cp.async)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _intra_check(err: int, what: str, shape) -> None:
+    if err:
+        raise RuntimeError(f"KDA chunk {what} kernel launch failed: CUDA "
+                           f"error {err} ([B, S, H, V] {list(shape)})")
+
+
+def kda_intra_fwd(q, k, v, g, beta) -> Tuple[torch.Tensor, ...]:
+    """(Q exp(G), A_qk, W, U', K~, gamma) of chunks [B, H, N, ...] from the
+    layer's q, k, v, g [B, S, H, .] and beta [B, S, H]: the kernel for
+    CUDA tensors, :func:`chunk_parts` else."""
+    if not k.is_cuda:
+        return chunk_parts(*chunk_inputs(q, k, v, g, beta))
+    args, shape = _intra_args(q, k, v, g, beta)
+    b, s, h, dv = shape
+    n, dk = -(-s // CHUNK), KEY_DIM
+
+    def new(*tail):
+        return torch.empty(b, h, n, *tail, device=k.device,
+                           dtype=torch.float32)
+
+    outs = (new(CHUNK, dk), new(CHUNK, CHUNK), new(CHUNK, dk),
+            new(CHUNK, dv), new(CHUNK, dk), new(dk))
+    stream = torch.cuda.current_stream(k.device).cuda_stream
+    with torch.cuda.device(k.device):
+        err = _lib().avsum_kda_intra_fwd(
+            *(t.data_ptr() for t in args + list(outs)), b, s, h, dv, stream)
+    _intra_check(err, "forward", shape)
+    kda_intra_fwd.launches += 1
+    return outs
+
+
+def kda_intra_bwd(q, k, v, g, beta, grads) -> Tuple[torch.Tensor, ...]:
+    """The gradients of q, k, v, g [B, S, H, .] and beta [B, S, H] from
+    those of :func:`kda_intra_fwd`'s six outputs: the kernel for CUDA
+    tensors, :func:`parts_bwd_plain` else."""
+    if not k.is_cuda:
+        d = parts_bwd_plain(*chunk_inputs(q, k, v, g, beta), *grads)
+        s = k.shape[1]
+        return (*(_unchunks(t, s) for t in d[:4]),
+                _unchunks(d[4][..., None], s)[..., 0])
+    args, shape = _intra_args(q, k, v, g, beta)
+    b, s, h, dv = shape
+    grads = [_aligned(t) for t in grads]
+    outs = [torch.empty_like(t) for t in args]
+    stream = torch.cuda.current_stream(k.device).cuda_stream
+    with torch.cuda.device(k.device):
+        err = _lib().avsum_kda_intra_bwd(
+            *(t.data_ptr() for t in args + grads + outs), b, s, h, dv,
+            stream)
+    _intra_check(err, "backward", shape)
+    kda_intra_bwd.launches += 1
+    return tuple(outs)
+
+
+kda_intra_fwd.launches = 0
+kda_intra_bwd.launches = 0
+
+
+class ChunkParts(torch.autograd.Function):
+    """q, k, v, g [B, S, H, .], beta [B, S, H] (float32) -> (Q exp(G),
+    A_qk, W, U', K~, gamma) of chunks [B, H, N, ...]. Only the inputs are
+    kept: the backward recomputes the decays, A_kk and the substitution
+    from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, g, beta):
+        ctx.save_for_backward(q, k, v, g, beta)
+        return kda_intra_fwd(q, k, v, g, beta)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return kda_intra_bwd(*ctx.saved_tensors, grads)
+
+
 def chunk_kda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               g: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """q, k [B, S, H, K], v [B, S, H, V], g [B, S, H, K] (log decay,
     <= 0), beta [B, S, H] -> o [B, S, H, V], float32. Shots past S pad
     the last chunk with zeros and change nothing before them. Under
-    autograd the chunk-parallel parts are recomputed in the backward
-    (``torch.utils.checkpoint``): their pairwise decays would otherwise
-    be kept, several GB a layer at an hour of shots."""
+    autograd only the inputs are kept for the chunk-parallel parts
+    (:class:`ChunkParts`): their pairwise decays would take several GB a
+    layer at an hour of shots."""
     b, s, h, _ = k.shape
     n = -(-s // CHUNK)
-    parts = [_chunks(t.float(), n) for t in (q, k, v, g)]
-    parts.append(_chunks(beta.float()[..., None], n)[..., 0])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in parts):
-        qg, a_qk, w, u0, kt, gamma = checkpoint(chunk_parts, *parts,
-                                                use_reentrant=False)
-    else:
-        qg, a_qk, w, u0, kt, gamma = chunk_parts(*parts)
+    qg, a_qk, w, u0, kt, gamma = ChunkParts.apply(
+        q.float(), k.float(), v.float(), g.float(), beta.float())
     states, u = StatePass.apply(w, u0, kt, gamma)
     o = qg @ states + a_qk @ u
     o = o.transpose(2, 3).transpose(1, 3).reshape(b, n * CHUNK, h, -1)

@@ -49,7 +49,11 @@ raising on failure:
    gates as the layer draws them, against their plain version
    (``pass_plain``), then timed in turns with it beside the bound, and
    ``chunk_kda`` against the benchmark reference's token recurrence in
-   float64, forward and every input gradient (``check_kda``);
+   float64, forward and every input gradient (``check_kda``); its
+   chunk-parallel kernels (``kda_intra_fwd``, ``kda_intra_bwd``) at S =
+   7168 and 7000 against their plain version (``chunk_parts``,
+   ``parts_bwd_plain``), forward and every gradient, then timed in turns
+   with it beside their bound (``check_kda_intra``);
 7. one hour-scale train step on the card against the same step on the
    CPU (same parameters and batch, dropout 0): loss, every gradient and
    the parameters after 3 steps;
@@ -59,7 +63,7 @@ raising on failure:
    kernels; torch.profiler); then one train step of
    ``configs/torch/kimi_linear_hour.yaml`` at S = 7168 (the hybrid
    decoder: the KDA kernel, latent attention, the experts), its time,
-   peak memory and the KDA kernel's launches (``kda_step``);
+   peak memory and the KDA kernels' launches (``kda_step``);
 9. the dataset path through the CLI at the ``configs/summe.yaml`` widths
    (those of phase 3), on a directory of the phase 3 and 4 videos and
    three more, with SumMe-shaped ground truth of five users each:
@@ -258,8 +262,10 @@ ONE_DEVICE = ["mesh.data=1", "mesh.model=1"]
 MOVE_SHOTS = 64  # shots scored by the artifact moved to the CPU
 SHOT_TOL = 1e-3  # device shot scores, card vs CPU
 CLASSIC_CORR = 0.98  # classic vs fast path features (the JAX test's bound)
-# NVIDIA H100 SXM, dense (data sheet): TF32 tensor-core rate, HBM3 rate
+# NVIDIA H100 SXM, dense (data sheet): TF32 tensor-core rate, float32
+# rate outside the tensor cores, HBM3 rate
 TF32_FLOPS = 495e12
+F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 
 
@@ -888,8 +894,7 @@ def check_kda(s: int = 7168, h: int = 32, iters: int = 5) -> dict:
 
     inputs = _kda_inputs(s, h)
     n = -(-s // kda.CHUNK)
-    parts = [kda._chunks(t, n) for t in inputs[:4]]
-    parts.append(kda._chunks(inputs[4][..., None], n)[..., 0])
+    parts = kda.chunk_inputs(*inputs)
     with torch.no_grad():
         _, _, w, u0, kt, gamma = kda.chunk_parts(*parts)
     del parts
@@ -946,14 +951,114 @@ def check_kda(s: int = 7168, h: int = 32, iters: int = 5) -> dict:
     return {"chunk_kda_max_rel_err": max(gaps.values()), **out}
 
 
+def kda_intra_bound(b: int, s: int, h: int, dk: int, dv: int,
+                    backward: bool) -> dict:
+    """The least time of one launch of the KDA chunk-parallel kernels at
+    [b, s, h, dk / dv]: A_qk, A_kk and the forward substitution, 4 C^2 K +
+    C^2 (K + V) FLOPs a chunk of a head (``counts_kda.kda_core_flops``'
+    first two terms; the backward twice that), float32 FMAs at the card's
+    float32 rate; or the bytes: forward q, k, v, g, beta read and Q exp(G),
+    A_qk, W, U', K~, gamma written, backward those inputs and the six
+    outputs' gradients read and the five inputs' gradients written, each
+    once."""
+    c = 64
+    chunks = b * h * -(-s // c)
+    flops = chunks * (4 * c * c * dk + c * c * (dk + dv)) * (
+        2 if backward else 1)
+    inputs = b * s * h * (3 * dk + dv + 1)
+    outputs = chunks * (3 * c * dk + c * dv + c * c + dk)
+    nbytes = 4 * (inputs + outputs + (inputs if backward else 0))
+    ops_ms = flops / F32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def check_kda_intra(h: int = 32, iters: int = 5) -> dict:
+    """KDA's chunk-parallel kernels (``csrc/kda.cu``'s
+    ``kda_intra_fwd_kernel`` and ``kda_intra_bwd_kernel`` through
+    ``ops/kda.py``) at the hybrid decoder's [1, S, H, 128], S = 7168 and
+    7000 (a ragged last chunk), on :func:`_kda_inputs`: the forward's six
+    outputs against ``chunk_parts`` and the backward's five gradients, on
+    cotangents of unit size, against ``parts_bwd_plain``, both plain
+    versions run on the card; then, at S = 7168, each timed in turns with
+    its plain version beside :func:`kda_intra_bound`. Raises past KDA_TOL
+    of the largest entry -> the kernels' entry of the kernels' JSON."""
+    import torch
+
+    from avsum_torch.ops import kda
+
+    def gap(got, want):
+        got, want = got.detach().double(), want.detach().double()
+        return float((got - want).abs().max() / want.abs().max())
+
+    misses, out = [], {}
+    for s in (7168, 7000):
+        inputs = _kda_inputs(s, h)
+        n = -(-s // kda.CHUNK)
+        parts = kda.chunk_inputs(*inputs)
+        before = kda.kda_intra_fwd.launches, kda.kda_intra_bwd.launches
+        got = kda.kda_intra_fwd(*inputs)
+        want = kda.chunk_parts(*parts)
+        fwd = {name: gap(a, b_) for name, a, b_ in zip(
+            ("qg", "a_qk", "w", "u0", "kt", "gamma"), got, want)}
+        del want
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        grads = [torch.randn(t.shape, generator=gen, device="cuda")
+                 for t in got]
+        got_d = kda.kda_intra_bwd(*inputs, grads)
+        want_d = kda.parts_bwd_plain(*parts, *grads)
+        want_d = [kda._unchunks(t, s) for t in want_d[:4]] + [
+            kda._unchunks(want_d[4][..., None], s)[..., 0]]
+        bwd = {f"d{name}": gap(a, b_) for name, a, b_ in zip(
+            ("q", "k", "v", "g", "beta"), got_d, want_d)}
+        del got_d, want_d
+        counted = (kda.kda_intra_fwd.launches - before[0],
+                   kda.kda_intra_bwd.launches - before[1])
+        print(f"KDA chunk kernels at [1, {s}, {h}, 128] against their plain "
+              "version, max error over the largest entry: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in {**fwd, **bwd}.items())
+              + f"; launches {counted}", flush=True)
+        misses += [(s, k, v) for k, v in {**fwd, **bwd}.items()
+                   if not v <= KDA_TOL]
+        if counted != (1, 1):
+            misses.append((s, "launches", counted))
+        if s != 7168:
+            continue
+        out["max_rel_err"] = max(max(fwd.values()), max(bwd.values()))
+        timed = {
+            "forward": (lambda: kda.kda_intra_fwd(*inputs),
+                        lambda: kda.chunk_parts(*parts)),
+            "backward": (lambda: kda.kda_intra_bwd(*inputs, grads),
+                         lambda: kda.parts_bwd_plain(*parts, *grads))}
+        for name, (kernel, plain) in timed.items():
+            bnd = kda_intra_bound(1, s, h, 128, 128, name == "backward")
+            t = compare_ms({"kernel": kernel, "plain": plain}, iters=iters)
+            print(f"KDA chunk {name} kernel at [1, {s}, {h}, 128] ({n} "
+                  f"chunks a head): kernel {fmt_ms(t['kernel'])}, plain "
+                  f"{fmt_ms(t['plain'])}; bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']}; "
+                  f"{bnd['bound_ms'] / t['kernel'][0]:.1%})", flush=True)
+            key = "" if name == "forward" else "bwd_"
+            out.update({f"{key}ms": t["kernel"][0],
+                        f"{key}plain_ms": t["plain"][0],
+                        f"{key}bound_ms": bnd["bound_ms"]})
+        del parts, grads
+    if misses:
+        raise AssertionError(f"the KDA chunk kernels missed their plain "
+                             f"version: {misses}")
+    return out
+
+
 def kda_step(steps: int = 2) -> dict:
     """``steps`` train steps of ``configs/torch/kimi_linear_hour.yaml`` at
     S = 7168 (Kimi Linear's hybrid decoder as each modality's encoder,
     random weights, dropout on) through ``make_train_step``, after a
     first one that builds and warms: their times, the peak memory and the
-    KDA kernel's launches, counted from 0 just before them; each step
-    must launch it once forward and once backward in each of the 8 KDA
-    layers (4 a decoder, 2 modalities) -> {"launches", "warm", "peak"}."""
+    KDA kernels' launches, counted from 0 just before them; each step
+    must launch the pass and the chunk-parallel kernel once forward and
+    once backward in each of the 8 KDA layers (4 a decoder, 2
+    modalities) -> {"launches", "intra_launches", "warm", "peak"}."""
     import numpy as np
     import torch
 
@@ -976,25 +1081,31 @@ def kda_step(steps: int = 2) -> dict:
     float(step(state, batch)[1]["loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kda.kda_fwd.launches = kda.kda_bwd.launches = 0
+    counters = (kda.kda_fwd, kda.kda_bwd, kda.kda_intra_fwd,
+                kda.kda_intra_bwd)
+    for counter in counters:
+        counter.launches = 0
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
         loss = float(step(state, batch)[1]["loss"])
         times.append(round((time.perf_counter() - t0) * 1e3, 1))
     launches = {"forward": kda.kda_fwd.launches,
-                "backward": kda.kda_bwd.launches}
+                "backward": kda.kda_bwd.launches,
+                "intra_forward": kda.kda_intra_fwd.launches,
+                "intra_backward": kda.kda_intra_bwd.launches}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     layers = 2 * len(cfg.model.kda_layers)
     print(f"hybrid step [1, {s}] (kimi_linear_hour.yaml): warm {times} ms, "
           f"loss {loss:.5f}, peak device memory {peak:.2f} GiB; KDA kernel "
           f"launches in {steps} steps {launches} ({layers} KDA layers)",
           flush=True)
-    if not np.isfinite(loss) or launches != {"forward": steps * layers,
-                                             "backward": steps * layers}:
+    if not np.isfinite(loss) or set(launches.values()) != {steps * layers}:
         raise AssertionError(f"hybrid step: loss {loss}, KDA launches "
                              f"{launches}, want {steps * layers} each")
     return {"launches": launches["forward"] + launches["backward"],
+            "intra_launches": (launches["intra_forward"]
+                               + launches["intra_backward"]),
             "warm": times, "peak": peak}
 
 
@@ -3491,6 +3602,7 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
     check_linear()
     gemm = time_linear()
     kda = check_kda()
+    kda_intra = check_kda_intra()
     compare_train_step()
     flash = hour_step()
     hybrid = kda_step()
@@ -3532,6 +3644,11 @@ def _run_in(tmp: str, cfg, card: str, export, export4, media) -> int:
         # the times are the forward's, bwd_ the backward's
         {"name": "kda", "route": "cuda", "source": "avsum_torch/csrc/kda.cu",
          "replaces": None, "launches": hybrid["launches"], **kda},
+        # the chunk-parallel kernels in the same library: the hybrid
+        # step's launches, forward and backward; times as the pass's
+        {"name": "kda_intra", "route": "cuda",
+         "source": "avsum_torch/csrc/kda.cu", "replaces": None,
+         "launches": hybrid["intra_launches"], **kda_intra},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,10 @@ CPU, at small sizes with seeded weights: the chunked op against the token
 recurrence, forward and every input gradient (S not a multiple of 64, a
 padded tail, decays strong enough that -G leaves float32's range within
 a chunk); the pass over chunks' hand-written backward against autograd;
-the KDA layer; NoPE latent attention; a two-decoder scorer of KDA, KDA,
+the chunk-parallel parts' plain backward (``parts_bwd_plain``) against
+autograd through ``chunk_parts`` in float64, their autograd Function's
+CPU route, what it keeps, and the shapes its kernels refuse; the KDA
+layer; NoPE latent attention; a two-decoder scorer of KDA, KDA,
 MLA layers with MoE (forward, loss, gradients and one training step);
 ``configs/torch/kimi_linear_hour.yaml`` at its published widths on the
 meta device; and ``moonlight_hour``'s modules and parameters, unchanged.
@@ -138,6 +141,68 @@ def test_the_pass_over_chunks_has_the_gradient_of_its_plain_loop():
                         * 0.3 for s in shapes)
     args = [t.requires_grad_(True) for t in (w, u0, kt, gamma.abs())]
     assert torch.autograd.gradcheck(kda.StatePass.apply, args)
+
+
+@pytest.mark.parametrize("s,decay", [(64, 0.5), (150, 1.0), (131, 30.0)])
+def test_the_plain_backward_matches_autograd_through_the_parts(s, decay):
+    """``parts_bwd_plain`` (the backward kernel's arithmetic) against
+    torch's gradient of ``chunk_parts``, both float64, every input: random
+    chunks, S not a multiple of 64, and at decay 30 -G in the thousands
+    within a chunk."""
+    inputs = [t.double() for t in op_inputs(2, s, 3, 16, 8, decay, seed=13)]
+    leaves = [t.requires_grad_(True) for t in kda.chunk_inputs(*inputs)]
+    outs = kda.chunk_parts(*leaves)
+    gen = torch.Generator().manual_seed(14)
+    grads = [torch.randn(t.shape, generator=gen, dtype=torch.float64)
+             for t in outs]
+    want = torch.autograd.grad(outs, leaves, grads)
+    got = kda.parts_bwd_plain(*(t.detach() for t in leaves), *grads)
+    for name, a, b in zip("qkvgb", got, want):
+        assert a.shape == b.shape and rel(a, b) < 1e-12, name
+
+
+def test_the_chunk_parts_function_keeps_the_plain_route():
+    """On the CPU ``ChunkParts`` gives ``chunk_parts``' outputs, bit for
+    bit, and autograd's gradients through it."""
+    inputs = op_inputs(1, 150, 2, 16, 8, 3.0, seed=15)
+    mine = [t.clone().requires_grad_(True) for t in inputs]
+    theirs = [t.clone().requires_grad_(True) for t in inputs]
+    got = kda.ChunkParts.apply(*mine)
+    want = kda.chunk_parts(*kda.chunk_inputs(*theirs))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    gen = torch.Generator().manual_seed(16)
+    grads = [torch.randn(t.shape, generator=gen) for t in want]
+    torch.autograd.backward(got, grads)
+    torch.autograd.backward(want, grads)
+    for name, a, b in zip("qkvgb", mine, theirs):
+        assert a.grad.shape == b.grad.shape and rel(a.grad, b.grad) < 1e-6, (
+            name)
+
+
+def test_the_chunk_parts_keep_only_their_inputs():
+    """Autograd keeps the five inputs of the chunk-parallel parts and
+    nothing they compute (no decay ratios, no A_kk)."""
+    inputs = [t.requires_grad_(True)
+              for t in op_inputs(1, 150, 2, 16, 8, 1.0, seed=17)]
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        kda.ChunkParts.apply(*inputs)
+    assert [t.data_ptr() for t in saved] == [t.data_ptr() for t in inputs]
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 128), (128, 48), (128, 256)])
+def test_the_chunk_kernels_refuse_what_they_do_not_take(dk, dv):
+    """Keys of 128 and values a multiple of 32 up to 128, else a
+    ValueError before any launch."""
+    q, k, v, g = (torch.zeros(1, 70, 2, w) for w in (dk, dk, dv, dk))
+    with pytest.raises(ValueError):
+        kda._intra_args(q, k, v, g, torch.zeros(1, 70, 2))
 
 
 def test_the_kda_layer_matches_the_reference():

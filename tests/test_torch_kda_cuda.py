@@ -1,18 +1,21 @@
-"""Kimi Delta Attention's kernel (``csrc/kda.cu``, ``ops/kda.py``) on the
+"""Kimi Delta Attention's kernels (``csrc/kda.cu``, ``ops/kda.py``) on the
 card: the forward and backward passes over chunks against their plain
-version (``pass_plain``, the CPU route's arithmetic) on the same inputs,
-and the whole chunked op at an hour of shots, [1, 7168, 32, 128], against
-the reference's token recurrence (``tests/reference_kimi_linear.py``),
-forward and every input gradient; with one TF32 pass in the chunked
-products the same comparison fails.
+version (``pass_plain``, the CPU route's arithmetic) on the same inputs;
+the chunk-parallel kernels (``kda_intra_fwd``, ``kda_intra_bwd``) against
+theirs (``chunk_parts``, ``parts_bwd_plain``) at [1, 7168, 32, 128] and at
+a ragged S = 7000, forward and every gradient; and the whole chunked op
+at an hour of shots, [1, 7168, 32, 128], against the reference's token
+recurrence (``tests/reference_kimi_linear.py``), forward and every input
+gradient; with one TF32 pass in the chunked products the same comparison
+fails.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere. The card machine has
 no JAX, so this file imports none and runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kda_cuda.py
 
-float32 with TF32 off. Tolerances: the kernel against its plain version,
-both float32 sums of 64 or 128 products in other orders, 1e-5 of the
+float32 with TF32 off. Tolerances: a kernel against its plain version,
+both float32 sums of 64 to 256 products in other orders, 1e-5 of the
 largest entry; the chunked op against the recurrence, which sums 7168
 steps one by one, 1e-5 of the largest entry forward and 1e-4 for the
 gradients (the backward runs the recurrence in reverse through the
@@ -81,10 +84,37 @@ def hour_inputs(device, s=7168, h=32, d=128):
     return q * d ** -0.5, k, v, g, beta
 
 
+@pytest.mark.parametrize("s", [7168, 7000])
+def test_the_chunk_kernels_match_their_plain_version(cuda, s):
+    inputs = hour_inputs(cuda, s=s)
+    parts = kda.chunk_inputs(*inputs)
+    before = kda.kda_intra_fwd.launches, kda.kda_intra_bwd.launches
+    got = kda.kda_intra_fwd(*inputs)
+    want = kda.chunk_parts(*parts)
+    for name, a, b in zip(("qg", "a_qk", "w", "u0", "kt", "gamma"), got,
+                          want):
+        assert a.shape == b.shape and gap(a, b) < 1e-5, name
+    del want
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    grads = [torch.randn(t.shape, generator=gen, device=cuda) for t in got]
+    got_d = kda.kda_intra_bwd(*inputs, grads)
+    want_d = kda.parts_bwd_plain(*parts, *grads)
+    want_d = [kda._unchunks(t, s) for t in want_d[:4]] + [
+        kda._unchunks(want_d[4][..., None], s)[..., 0]]
+    gaps = {name: gap(a, b) for name, a, b in zip("qkvgb", got_d, want_d)}
+    print(f"chunk kernels at S = {s}, gradients against their plain "
+          f"version: {gaps}")
+    assert all(a.shape == b.shape for a, b in zip(got_d, inputs))
+    assert max(gaps.values()) < 1e-5, gaps
+    assert (kda.kda_intra_fwd.launches, kda.kda_intra_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
 def test_the_chunked_op_matches_the_recurrence_at_an_hour(cuda):
     inputs = hour_inputs(cuda)
     mine = [t.clone().requires_grad_(True) for t in inputs]
-    before = kda.kda_fwd.launches, kda.kda_bwd.launches
+    before = (kda.kda_fwd.launches, kda.kda_bwd.launches,
+              kda.kda_intra_fwd.launches, kda.kda_intra_bwd.launches)
     got = kda.chunk_kda(*mine)
     theirs = [t.clone().requires_grad_(True) for t in inputs]
     want = ref.kda_recurrence(*theirs)
@@ -96,8 +126,9 @@ def test_the_chunked_op_matches_the_recurrence_at_an_hour(cuda):
     grads = [gap(a.grad, b.grad) for a, b in zip(mine, theirs)]
     print(f"chunked against the recurrence: forward {forward_gap:.3e}, "
           f"gradients {['%.3e' % x for x in grads]}")
-    assert (kda.kda_fwd.launches, kda.kda_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (kda.kda_fwd.launches, kda.kda_bwd.launches,
+            kda.kda_intra_fwd.launches, kda.kda_intra_bwd.launches) == tuple(
+                x + 1 for x in before)
     assert forward_gap < 1e-5
     assert max(grads) < 1e-4
     # one TF32 pass in the chunk-parallel products fails the same check
